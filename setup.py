@@ -13,8 +13,14 @@ setup(
     long_description=long_description,
     long_description_content_type="text/markdown",
     license="MIT",
-    packages=find_packages(include=["tinycarlo_tpu", "tinycarlo_tpu.*"]),
-    package_data={"tinycarlo_tpu.models": ["pretrained/*.npz"]},
+    packages=find_packages(include=[
+        "tinycarlo_tpu", "tinycarlo_tpu.*",
+        "tinycarlo_torch", "tinycarlo_torch.*",
+    ]),
+    package_data={
+        "tinycarlo_tpu.models": ["pretrained/*.npz"],
+        "tinycarlo_torch.ops": ["csrc/*.cu"],
+    },
     python_requires=">=3.10",
     install_requires=[
         "jax>=0.4.30",

@@ -1,0 +1,83 @@
+"""The port's CUDA kernels against their plain PyTorch versions on the
+card. These tests need an NVIDIA GPU and nvcc and skip without them: a
+CUDA kernel has no CPU mode (the CPU tests hold the plain versions against
+the JAX package instead).
+
+This file imports neither JAX nor anything of tests/, so on a GPU machine
+without JAX it runs on its own:
+
+    python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from tinycarlo_torch.ops import rasterize_kernels as rk
+
+
+def _require_cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the masks kernel is CUDA-only")
+
+
+def _segments(seed, b, e, h, w, n_layers, dev):
+    rng = np.random.default_rng(seed)
+    u0 = rng.uniform(-40, w + 40, (b, e))
+    v0 = rng.uniform(-40, h + 40, (b, e))
+    u1 = u0 + rng.uniform(-90, 90, (b, e))
+    v1 = v0 + rng.uniform(-60, 60, (b, e))
+    draw = rng.random((b, e)) < 0.7
+    draw[0] = False  # an env with nothing to draw
+    lay = np.sort(rng.integers(0, n_layers, e)).astype(np.int32)
+    f = lambda x: torch.tensor(x, dtype=torch.float32, device=dev)  # noqa
+    return (f(u0), f(v0), f(u1), f(v1), torch.tensor(draw, device=dev),
+            torch.tensor(lay, device=dev))
+
+
+# (t, h, w, k per block): t=1 exact Bresenham, the split stroke at t=2/3,
+# the lane split at w=160, h=30 (not a multiple of the 16-row band), an
+# oversubscribed budget, and 480x640, whose strip needs more than the
+# default 48 KB of shared memory.
+CASES = [(1, 128, 160, 100), (2, 30, 48, 100), (3, 64, 160, 6),
+         (2, 128, 160, 100), (2, 480, 640, 100)]
+
+
+@pytest.mark.parametrize("t,h,w,kb", CASES)
+@pytest.mark.parametrize("out_dtype", [torch.uint8, torch.float32])
+def test_masks_kernel_matches_plain(t, h, w, kb, out_dtype):
+    """Bit-equal (the kernel is built with -fmad=false)."""
+    _require_cuda()
+    L, E = 5, 100
+    u0, v0, u1, v1, draw, lay = _segments(t * 7 + h, 48, E, h, w, L, "cuda")
+    bundle = rk.compact_env_idx_soa(
+        u0, v0, u1, v1, draw, kb * rk._n_xblocks(w), h, t, edge_layer=lay,
+        n_layers=L, w=w,
+    )
+    before = rk.masks_kernel.launches
+    got = rk.masks_kernel(bundle, L, (h, w), t, out_dtype=out_dtype)
+    assert rk.masks_kernel.launches == before + 1
+    want = rk.rasterize_masks_env_plain(bundle, L, (h, w), t,
+                                        out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert got.dtype == out_dtype and got.shape == (48, L, h, w)
+    assert torch.equal(got, want)
+    assert want.sum() > 0 and not want[0].any()
+
+
+def test_packed_entry_launches_kernel():
+    """rasterize_masks_packed_soa on CUDA tensors goes through the kernel,
+    which checks its inputs and raises instead of falling back."""
+    _require_cuda()
+    L, E, h, w = 5, 100, 64, 160
+    u0, v0, u1, v1, draw, lay = _segments(3, 16, E, h, w, L, "cuda")
+    before = rk.masks_kernel.launches
+    out = rk.rasterize_masks_packed_soa(u0, v0, u1, v1, draw, lay, L, (h, w),
+                                        2, max_visible=128)
+    torch.cuda.synchronize()
+    assert rk.masks_kernel.launches == before + 1
+    assert out.shape == (16, L, h, w) and out.dtype == torch.uint8
+    bundle = rk.compact_env_idx_soa(
+        u0, v0, u1, v1, draw, 256, h, 2, edge_layer=lay, n_layers=L, w=w,
+    )
+    with pytest.raises(ValueError, match="int32"):
+        rk.masks_kernel((bundle[0].long(),) + bundle[1:], L, (h, w), 2)
