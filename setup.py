@@ -19,7 +19,7 @@ setup(
     ]),
     package_data={
         "tinycarlo_tpu.models": ["pretrained/*.npz"],
-        "tinycarlo_torch.ops": ["csrc/*.cu"],
+        "tinycarlo_torch.ops": ["csrc/*.cu", "csrc/*.cuh"],
     },
     python_requires=">=3.10",
     install_requires=[

@@ -128,6 +128,10 @@ def port_modules():
 def test_port_imports_without_jax():
     """Every module of the port imports with jax, flax and tinycarlo_tpu
     blocked."""
+    modules = port_modules()
+    for name in ("models.tinycar_net", "train.evaluate", "ops.rasterize",
+                 "ops.rasterize_kernels", "env", "convert"):
+        assert f"tinycarlo_torch.{name}" in modules
     code = (
         "import sys\n"
         "for m in ('jax', 'flax', 'tinycarlo_tpu'):\n"

@@ -145,22 +145,29 @@ def test_plain_matches_dense(t, h, w):
     assert got.numpy().sum() > 0
 
 
-def test_binding_matches_c_signature():
-    """The ctypes argument types follow tc_masks_launch's parameter list in
-    masks.cu, one for one (a mismatch only shows when the kernel launches)."""
+def c_argtypes(source, symbol):
+    """The ctypes argument types of `symbol`'s C parameter list in
+    ops/csrc/`source`, pointers as c_void_p."""
     import ctypes
     import os
     import re
 
-    src = open(os.path.join(os.path.dirname(rk.__file__), "csrc",
-                            "masks.cu")).read()
-    decl = re.search(r'extern "C" int tc_masks_launch\((.*?)\)', src, re.S)
+    with open(os.path.join(os.path.dirname(rk.__file__), "csrc",
+                           source)) as f:
+        src = f.read()
+    decl = re.search(rf'extern "C" int {symbol}\((.*?)\)', src, re.S)
     kinds = []
     for param in decl.group(1).split(","):
         ctype = param.strip().rsplit(" ", 1)[0]
         kinds.append(ctypes.c_void_p if "*" in param
                      else {"int": ctypes.c_int, "float": ctypes.c_float}[ctype])
-    assert kinds == rk.MasksKernel.ARGTYPES
+    return kinds
+
+
+def test_binding_matches_c_signature():
+    """The ctypes argument types follow tc_masks_launch's parameter list in
+    masks.cu, one for one (a mismatch only shows when the kernel launches)."""
+    assert c_argtypes("masks.cu", "tc_masks_launch") == rk.MasksKernel.ARGTYPES
 
 
 def test_wrapper_dispatch_and_counter():

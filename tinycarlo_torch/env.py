@@ -8,15 +8,17 @@ takes a batch of B environments with the batch axis out front:
     step(params, state, action)  -> (state, obs, reward, terminated,
                                      truncated, info)
 
-Observations are the classes format, (B, L, H, W) uint8 0/255 masks (or
-float32 0/1 with `out_dtype=torch.float32`), rendered by the packed
-projection, the compaction and the masks kernel. The rgb, rgb_planar and
-rank formats are not ported yet (ROADMAP M10) and raise.
+Observations follow `sim.observation_space_format` (shapes in
+`observation_shape`): "classes" masks (B, L, H, W) uint8 0/255 (or float32
+0/1 with `out_dtype=torch.float32`) from the masks kernel, or the rank
+kernel's (B, H, W) layer-rank map -- "rank" itself, or decoded to "rgb"
+(B, H, W, 3) and "rgb_planar" (B, 3, H, W) uint8. Both kernels read the
+compaction of the packed camera projection.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
-from typing import Any, Dict, Optional, Union
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 
@@ -24,6 +26,7 @@ from tinycarlo_torch import camera as cam
 from tinycarlo_torch import car as car_mod
 from tinycarlo_torch.config import EnvConfig, load_config
 from tinycarlo_torch.map_compiler import MapData, compile_map
+from tinycarlo_torch.ops import rasterize as ras
 from tinycarlo_torch.ops import rasterize_kernels as rk
 from tinycarlo_torch.utils.helper import resolve_device
 
@@ -71,12 +74,30 @@ def make_env_params(
     return EnvParams(map_data=map_data, camera=matrices, cfg=cfg)
 
 
+FORMATS = ("classes", "rgb", "rgb_planar", "rank")
+
+
+def observation_shape(params: EnvParams) -> Tuple[int, ...]:
+    """One env's observation shape in the configured format. Reference
+    env.py:68-73 for rgb / classes; tinycarlo_tpu.env.observation_shape
+    for the extensions rgb_planar (channel-planar rgb) and rank (the
+    paint-order layer map, one byte per pixel)."""
+    h, w = params.cfg.camera.resolution
+    fmt = _check_format(params, None)
+    if fmt == "rgb":
+        return (h, w, 3)
+    if fmt == "rgb_planar":
+        return (3, h, w)
+    if fmt == "rank":
+        return (h, w)
+    return (params.map_data.n_layers, h, w)
+
+
 def _check_format(params: EnvParams, fmt: Optional[str]) -> str:
     fmt = fmt or params.cfg.sim.observation_space_format
-    if fmt != "classes":
-        raise NotImplementedError(
-            f"observation_space_format {fmt!r} is not ported yet (ROADMAP "
-            "M10); the port renders the 'classes' format"
+    if fmt not in FORMATS:
+        raise ValueError(
+            f"observation_space_format {fmt!r} is not one of {FORMATS}"
         )
     return fmt
 
@@ -120,23 +141,42 @@ def render_observation_batch(
     fmt: Optional[str] = None,
     out_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
-    """(B, L, H, W) class masks for a batch of states: packed projection,
-    compaction and the masks kernel (env.py:245-319, classes branch).
+    """Observations of a batch of states in format `fmt` (default: the
+    config's): packed projection and compaction, then the masks kernel
+    (classes) or the rank kernel and its decode (rank, rgb, rgb_planar).
+    tinycarlo_tpu.env.render_observation_batch (env.py:245-319).
 
-    `out_dtype=None` keeps the observation contract (uint8 0/255); float32
-    gives 0/1 masks straight from the kernel for in-graph consumers."""
-    _check_format(params, fmt)
+    `out_dtype=None` keeps the observation contract (uint8); float32 gives
+    0/1 class masks straight from the masks kernel for in-graph consumers,
+    and is only defined for classes."""
+    fmt = _check_format(params, fmt)
+    if out_dtype is not None and fmt != "classes":
+        raise ValueError("float out_dtype is only defined for classes masks")
     cfg = params.cfg
     md = params.map_data
     u0, v0, u1, v1, draw = _project_packed_batch_soa(params, states)
-    return rk.rasterize_masks_packed_soa(
+    if fmt == "classes":
+        return rk.rasterize_masks_packed_soa(
+            u0, v0, u1, v1, draw, md.packed_edge_layer, md.n_layers,
+            tuple(cfg.camera.resolution), cfg.camera.line_thickness,
+            max_visible=cfg.camera.max_visible_segments,
+            layer_bounds=md.packed_layer_bounds,
+            out_dtype=torch.uint8 if out_dtype is None else out_dtype,
+            stroke=cfg.camera.stroke,
+        )
+    # rgb fast path (env.py:270-297): the rank kernel's layer map, then
+    # the palette composite reads it instead of per-layer masks
+    rank = rk.rasterize_rank_packed_soa(
         u0, v0, u1, v1, draw, md.packed_edge_layer, md.n_layers,
         tuple(cfg.camera.resolution), cfg.camera.line_thickness,
         max_visible=cfg.camera.max_visible_segments,
-        layer_bounds=md.packed_layer_bounds,
-        out_dtype=torch.uint8 if out_dtype is None else out_dtype,
-        stroke=cfg.camera.stroke,
+        layer_bounds=md.packed_layer_bounds, stroke=cfg.camera.stroke,
     )
+    if fmt == "rank":
+        return rank
+    if fmt == "rgb_planar":
+        return ras.rgb_planar_from_rank(rank, md.laneline_colors)
+    return ras.rgb_from_rank(rank, md.laneline_colors)
 
 
 def _info(params: EnvParams, state: EnvState) -> Dict[str, torch.Tensor]:

@@ -4,8 +4,8 @@ Every `ops/csrc/*.cu` source is compiled by `nvcc` into its own shared
 library with a plain C interface, at first use, into `tinycarlo_torch/_build/`
 (listed in .gitignore). The libraries are loaded with ctypes. All sources
 are compiled at once, one `nvcc` process each, started together. A
-library is rebuilt only when its source (or the flags) change: the file
-name carries a hash of both.
+library is rebuilt only when its source, a shared header (`*.cuh`) or the
+flags change: the file name carries a hash of all three.
 
 Nothing here runs at import time: importing the module neither compiles
 nor loads anything, so the CPU tests can import every module.
@@ -64,10 +64,12 @@ class KernelLibraries:
         self.build_log: Dict[str, str] = {}
 
     def _target(self, src: str) -> str:
-        with open(src, "rb") as f:
-            digest = hashlib.sha256(
-                f.read() + " ".join(NVCC_FLAGS).encode()
-            ).hexdigest()[:16]
+        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        # the source and every shared header it may include
+        for path in [src] + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
+            with open(path, "rb") as f:
+                h.update(f.read())
+        digest = h.hexdigest()[:16]
         name = os.path.splitext(os.path.basename(src))[0]
         return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
 

@@ -10,24 +10,12 @@
 //   staged through multi-buffered DMA). Both run `_tier_loops` (:1664) over
 //   the `_window_hit` stamp (:134).
 //
-// Function. For the bundle of `compact_env_idx_soa(pre=False)` -- counts
-// (4+L, B) int32 rows [live, one-band, short, dropped, per-layer...], idx
-// (B, kp) int32 slot->copy map, SoA ax, ay, abx, aby, inv (B, LE) float32
-// and band words bw (B, LE) int32 -- pixel (env, l, y, x) is lit iff some
-// slot s < counts[0, env] whose band word decodes to frame l*nxb + x/128
-// stamps (y, x). A slot with band word bw = ((frame*n_bands + b0) << 9) | nb
-// stamps the `win`-row window at band b0 and, when nb > win/16 (a tall
-// copy), the 16-row tail bands up to b0 + nb: the rows the TPU's tiers
-// stamp. Rows [h, hp) are never written out; layers with counts[4+l] == 0
-// and envs with no live slot are written as zeros.
-//
-// Arithmetic. `window_hit` is `_window_hit` operation for operation: the
-// window-relative `ay - y0` in float, apx = x - ax, apy = ys - (ay - y0), the
-// split stroke's tu / clip / d2 chain at t >= 2, the closed-form Bresenham
-// with its residual-corrected floor at t = 1. All coordinates are
-// integer-valued floats below 2^24, and with -fmad=false no multiply-add is
-// contracted, so the kernel agrees bit for bit with its plain PyTorch
-// version (rasterize_masks_env_plain).
+// Function. For the bundle of `compact_env_idx_soa(pre=False)` (layout,
+// band words and stamp arithmetic in stamp.cuh, shared with rank.cu),
+// pixel (env, l, y, x) is lit iff some slot s < counts[0, env] whose band
+// word decodes to frame l*nxb + x/128 stamps (y, x). Rows [h, hp) are
+// never written out; layers with counts[4+l] == 0 and envs with no live
+// slot are written as zeros.
 //
 // Design. One thread block per (env, frame), frame = l*nxb + xb: B*L*nxb
 // blocks. The block keeps its frame as a uint8 [hp][wb] strip in shared
@@ -39,68 +27,24 @@
 // row-contiguous, 4-wide stores when the width allows.
 //
 // Bound on the H100 at the bench shape (B=4096, L=5, 128x160, LE=528,
-// kp=263). Bytes: the uint8 output, 419 MB, written once, plus ~57 MB of
-// bundle read once -- ~476 MB, 0.14 ms at 3.35 TB/s. Operations: the split
-// stroke costs 18 float operations per evaluated pixel and the kernel
-// evaluates win*128 = 4096 pixels per short slot (more for talls); the
-// bench's bundles need ~9.5 GOP, also ~0.14 ms at 67 TFLOP/s, so the two
-// bounds are about equal (chip_smoke.py computes both from each run's
-// bundle). The design writes each output byte once, with row-contiguous
-// stores, and evaluates no pixel outside a live slot's window rows; it
-// does not yet shrink the window to the segment's extent, bit-pack the
-// strip, or keep blocks resident across envs -- later work.
-#include <cuda_runtime.h>
-#include <stdint.h>
+// kp=263). Bytes: the uint8 output, 419 MB, written once, plus the
+// counts, the live slots' idx entries and their copies' SoA entries,
+// ~4 MB -- ~423 MB, 0.126 ms at 3.35 TB/s. Operations: the split stroke
+// costs 18 float operations per pixel, and only the pixels of each live
+// copy's bounding box, padded by the stroke radius, can be lit: ~0.56 G,
+// 0.008 ms at 67 TFLOP/s. So bytes bound it (chip_smoke.py computes both
+// from each run's bundle). The design writes each output byte once, with
+// row-contiguous stores, but evaluates win*128 = 4096 pixels per short
+// slot (more for talls), ~17x the bounding boxes' pixels; it does not yet
+// shrink the window to the segment's extent, bit-pack the strip, or keep
+// blocks resident across envs -- later work.
+#include "stamp.cuh"
 
 namespace {
 
-constexpr int kNbShift = 9;    // rasterize_pallas._NB_SHIFT
-constexpr int kNbMask = 511;   // rasterize_pallas._NB_PACK - 1
-constexpr int kXB = 128;       // rasterize_pallas._XB
-constexpr int kGran = 16;      // rows per band (rasterize_kernels._GRAN)
+using namespace tc;
+
 constexpr int kThreads = 256;
-
-struct Params {
-  const int32_t* counts;  // (4 + L, B)
-  const int32_t* idx;     // (B, kp)
-  const float* ax;        // (B, le) each
-  const float* ay;
-  const float* abx;
-  const float* aby;
-  const float* inv;
-  const int32_t* bw;      // (B, le)
-  int B, L, h, w, hp, win, nxb, wb, kp, le, n_bands;
-  int bres;               // 1: thickness-1 Bresenham stamp, 0: split stroke
-  float lat2, cap2;
-};
-
-__device__ __forceinline__ bool window_hit(float apx, float apy, float abx,
-                                           float aby, float inv,
-                                           const Params& p) {
-  if (p.bres) {
-    float ady = fabsf(aby);
-    float sy = aby >= 0.f ? 1.f : -1.f;
-    bool xmaj = abx >= ady;
-    float maj = fmaxf(abx, ady);
-    float mino = fminf(abx, ady);
-    float step = xmaj ? apx : sy * apy;
-    float num = 2.f * mino * step + (maj - 1.f);
-    float q = floorf(num * inv);
-    float r = num - q * (2.f * maj);
-    q = q + (r >= 2.f * maj ? 1.f : 0.f) - (r < 0.f ? 1.f : 0.f);
-    float probe = xmaj ? apy : apx;
-    float target = xmaj ? sy * q : q;
-    if (maj == 0.f) return (apx == 0.f) && (apy == 0.f);
-    return (step >= 0.f) && (step <= maj) && (probe == target);
-  }
-  float tu = (apx * abx + apy * aby) * inv;
-  float t = fminf(fmaxf(tu, 0.f), 1.f);
-  float dx = apx - t * abx;
-  float dy = apy - t * aby;
-  float d2 = dx * dx + dy * dy;
-  float r2 = (tu >= 0.f && tu <= 1.f) ? p.lat2 : p.cap2;
-  return d2 <= r2;
-}
 
 template <typename OutT>
 struct Pack4;
@@ -185,45 +129,16 @@ masks_kernel(Params p, OutT* __restrict__ out, int strip_bytes) {
   for (int s = threadIdx.x; s < n; s += blockDim.x) {
     int e = idx[s];
     int word = bw[e];
-    if ((word & kNbMask) > 0 && (word >> kNbShift) / p.n_bands == frame) {
+    if (word_live(word) && word_frame(word, p) == frame) {
       list[atomicAdd(&n_list, 1)] = e;
     }
   }
   __syncthreads();
 
   const int m = n_list;
-  const int wbands = p.win / kGran;
   for (int j = 0; j < m; ++j) {
-    const size_t o = (size_t)env * p.le + list[j];
-    const float ax = p.ax[o], ay = p.ay[o];
-    const float abx = p.abx[o], aby = p.aby[o], inv = p.inv[o];
-    const int word = p.bw[o];
-    const int nb = word & kNbMask;
-    const int rowband = word >> kNbShift;  // frame * n_bands + b0 (stacked)
-    const int b0 = rowband - frame * p.n_bands;
-    // the window's bands, plus a tall copy's tail bands
-    const int rows = max(nb, wbands) * kGran;
-    const int y0 = rowband * kGran;  // stacked row of the window start
-    const float ayw = ay - (float)y0;
-    for (int i = threadIdx.x; i < rows * p.wb; i += blockDim.x) {
-      const int rr = i / p.wb;
-      const int x = i - rr * p.wb;
-      float ys, ay_rel;
-      if (rr < p.win) {
-        ys = (float)rr;
-        ay_rel = ayw;
-      } else {
-        // tail band: its own kGran-row window at y0 + band_row
-        const int band_row = (rr / kGran) * kGran;
-        ys = (float)(rr - band_row);
-        ay_rel = ay - (float)(y0 + band_row);
-      }
-      const float apx = (float)x - ax;
-      const float apy = ys - ay_rel;
-      if (window_hit(apx, apy, abx, aby, inv, p)) {
-        strip[(b0 * kGran + rr) * p.wb + x] = 1;
-      }
-    }
+    stamp_copy(p, (size_t)env * p.le + list[j], frame,
+               [&](int row, int x) { strip[row * p.wb + x] = 1; });
   }
   __syncthreads();
   store_frame<OutT>(dst, strip, p, cols, vec);
@@ -254,7 +169,7 @@ extern "C" int tc_masks_launch(
     const float* ay, const float* abx, const float* aby, const float* inv,
     const int32_t* bw, void* out, int out_float, int B, int L, int h, int w,
     int kp, int le, int bres, float lat2, float cap2, void* stream) {
-  Params p;
+  tc::Params p;
   p.counts = counts;
   p.idx = idx;
   p.ax = ax;
@@ -265,15 +180,7 @@ extern "C" int tc_masks_launch(
   p.bw = bw;
   p.B = B;
   p.L = L;
-  p.h = h;
-  p.w = w;
-  // frame geometry as rasterize_kernels._frame_geometry: 16-row bands,
-  // a two-band window, and 128-lane blocks when w exceeds one block
-  p.n_bands = (h + kGran - 1) / kGran;
-  p.hp = p.n_bands * kGran;
-  p.win = p.hp < 2 * kGran ? p.hp : 2 * kGran;
-  p.nxb = w > kXB ? (w + kXB - 1) / kXB : 1;
-  p.wb = p.nxb > 1 ? kXB : w;
+  tc::set_geometry(p, h, w);
   p.kp = kp;
   p.le = le;
   p.bres = bres;

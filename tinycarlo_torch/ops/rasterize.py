@@ -6,10 +6,12 @@ clipLine and closed-form 8-connected Bresenham at thickness 1, the
 calibrated split stroke (rectangle body + end caps) at t >= 2, and the
 dense `rasterize_masks`. The dense rasterizer evaluates every (pixel,
 segment) pair and is the CPU oracle for the masks kernel
-(ops/rasterize_kernels.py, ops/csrc/masks.cu).
+(ops/rasterize_kernels.py, ops/csrc/masks.cu). The decodes turn a layer-
+rank map (the rank kernel's output) or class masks into the rgb,
+rgb_planar and classes formats.
 
 Not ported yet: the bit-exact cv2 ThickLine stroke (`stroke="exact"` at
-t >= 2, ROADMAP M11) and the rgb / rgb_planar / rank decodes (M10).
+t >= 2, ROADMAP M11).
 """
 from __future__ import annotations
 
@@ -206,3 +208,68 @@ def rasterize_masks(
         hit = (hit & draw[l]).any(dim=-1)
         out.append(torch.where(hit, 255, 0).to(torch.uint8))
     return torch.stack(out)
+
+
+def rgb_from_rank(rank: torch.Tensor, colors: torch.Tensor) -> torch.Tensor:
+    """(..., H, W) uint8 layer-rank map (0 = background, l+1 = layer l
+    painted last) -> (..., H, W, 3) uint8 rgb: cv2 paints layers in index
+    order with later layers overwriting (renderer.py:41-43), which is
+    "highest rank wins". tinycarlo_tpu.ops.rasterize.rgb_from_rank."""
+    colors = colors.to(torch.uint8)
+    frame = torch.zeros(rank.shape + (3,), dtype=torch.uint8,
+                        device=rank.device)
+    for l in range(colors.shape[0]):
+        frame = torch.where((rank == l + 1)[..., None], colors[l], frame)
+    return frame
+
+
+def rank_from_masks(masks: torch.Tensor) -> torch.Tensor:
+    """(..., L, H, W) class masks -> (..., H, W) uint8 layer-rank map, the
+    highest set layer index + 1 at each pixel (0 = background).
+    tinycarlo_tpu.ops.rasterize.rank_from_masks."""
+    n = masks.shape[-3]
+    ranks = torch.arange(1, n + 1, dtype=torch.uint8,
+                         device=masks.device).reshape(n, 1, 1)
+    return torch.where(masks > 0, ranks, 0).to(torch.uint8).amax(dim=-3)
+
+
+def classes_from_rank(rank: torch.Tensor, n_layers: int,
+                      out_dtype: torch.dtype = torch.uint8) -> torch.Tensor:
+    """(..., H, W) rank map -> (..., L, H, W) one-hot class masks: only the
+    last-painted layer's channel is set where layers overlap. uint8 gives
+    0/255, float dtypes 0/1. tinycarlo_tpu.ops.rasterize.classes_from_rank."""
+    ids = torch.arange(1, n_layers + 1, dtype=rank.dtype,
+                       device=rank.device).reshape(n_layers, 1, 1)
+    hit = rank[..., None, :, :] == ids
+    one = 255 if out_dtype == torch.uint8 else 1
+    return torch.where(hit, one, 0).to(out_dtype)
+
+
+def rgb_planar_from_rank(rank: torch.Tensor,
+                         colors: torch.Tensor) -> torch.Tensor:
+    """(..., H, W) uint8 rank map -> (..., 3, H, W) uint8 planar rgb: the
+    pixels of `rgb_from_rank`, channel first.
+    tinycarlo_tpu.ops.rasterize.rgb_planar_from_rank."""
+    colors = colors.to(torch.uint8)
+    chans = []
+    for c in range(3):
+        ch = torch.zeros(rank.shape, dtype=torch.uint8, device=rank.device)
+        for l in range(colors.shape[0]):
+            ch = torch.where(rank == l + 1, colors[l, c], ch)
+        chans.append(ch)
+    return torch.stack(chans, dim=-3)
+
+
+def rasterize_rgb_planar(masks: torch.Tensor,
+                         colors: torch.Tensor) -> torch.Tensor:
+    """(..., L, H, W) masks -> (..., 3, H, W) uint8 planar rgb, layers
+    painted in index order. tinycarlo_tpu.ops.rasterize.rasterize_rgb_planar."""
+    colors = colors.to(torch.uint8)
+    chans = []
+    for c in range(3):
+        ch = torch.zeros(masks.shape[:-3] + masks.shape[-2:],
+                         dtype=torch.uint8, device=masks.device)
+        for l in range(colors.shape[0]):
+            ch = torch.where(masks[..., l, :, :] > 0, colors[l, c], ch)
+        chans.append(ch)
+    return torch.stack(chans, dim=-3)

@@ -1,18 +1,22 @@
-"""Segment compaction and the masks kernel: the port's render path.
+"""Segment compaction and the masks and rank kernels: the port's render path.
 
 Counterpart of the main path of tinycarlo_tpu/ops/rasterize_pallas.py.
 Projection output (per-env packed edge coordinates) is compacted by torch
 ops into the same bundle as `compact_env_idx_soa(pre=False)`: per copy
 (one per segment and touched 128-lane block) the integer endpoint, the
 direction, the stamp's reciprocal and a packed band word, plus a (B, k)
-slot->copy index from `torch.topk` over a short-first key. The masks
-kernel (ops/csrc/masks.cu) stamps the live slots into (B, L, H, W) masks.
-It replaces the Pallas kernels `_kernel_env_idx` and `_kernel_env_dma`.
+slot->copy index from `torch.topk` over a short-first key. Two kernels
+stamp the live slots of that bundle:
 
-`MasksKernel.__call__` dispatches on the bundle's device: CUDA tensors
+- the masks kernel (ops/csrc/masks.cu) into (B, L, H, W) class masks; it
+  replaces the Pallas kernels `_kernel_env_idx` and `_kernel_env_dma`;
+- the rank kernel (ops/csrc/rank.cu) into a (B, H, W) layer-rank map, the
+  rgb / rgb_planar / rank formats' render; it replaces `_kernel_env_rank`.
+
+Each wrapper's `__call__` dispatches on the bundle's device: CUDA tensors
 launch the kernel (or raise), CPU tensors take the plain PyTorch version
-`rasterize_masks_env_plain`, which computes the same function and is the
-kernel's reference on the card.
+(`rasterize_masks_env_plain`, `rasterize_rank_env_plain`), which computes
+the same function and is the kernel's reference on the card.
 """
 from __future__ import annotations
 
@@ -37,7 +41,7 @@ _NB_SHIFT = 9  # log2(_NB_PACK)
 # ceil(w / 128) blocks, each its own stamped strip.
 _XB = 128
 # Band granularity of the production path: a slot's window spans two
-# 16-row bands (kGran in masks.cu).
+# 16-row bands (kGran in ops/csrc/stamp.cuh).
 _GRAN = 16
 
 
@@ -282,28 +286,20 @@ def _frame_geometry(resolution):
 _PLAIN_CHUNK = 1 << 15
 
 
-def rasterize_masks_env_plain(
-    bundle,
-    n_layers: int,
-    resolution: Tuple[int, int],
-    thickness: int,
-    out_dtype: torch.dtype = torch.uint8,
-) -> torch.Tensor:
-    """Plain PyTorch version of the masks kernel: (B, L, H, W) masks from a
-    `compact_env_idx_soa` bundle, `out_dtype` uint8 (0/255) or float32
-    (0/1). Same function and same float arithmetic as ops/csrc/masks.cu.
+def _plain_hits(bundle, resolution: Tuple[int, int], thickness: int):
+    """The stamps of the masks and rank kernels, chunk by chunk: yields
+    (env, frame, row, hit) with env, frame (n,) and row (n, 16) the env,
+    stacked frame (l*nxb + xb) and strip rows of n 16-row bands, and hit
+    (n, 16, wb) their lit pixels. Same float arithmetic as the kernels'
+    `window_hit` (ops/csrc/stamp.cuh).
 
     Every live slot (s < counts[0, env], nb > 0) stamps its window's bands
     and, for a tall copy, its tail bands; each (slot, band) pair is one
     16-row x wb-lane evaluation of the `_window_hit` stamp. The pairs are
-    evaluated in chunks so the float temporaries stay bounded, and hits
-    are scattered into a (B, L*nxb, hp, wb) strip tensor.
+    evaluated in chunks so the float temporaries stay bounded.
     """
     idx, ax, ay, abx, aby, inv, bw, counts = bundle
-    h, w = resolution
     n_bands, hp, win, nxb, wb = _frame_geometry(resolution)
-    bsz = counts.shape[1]
-    n_frames = n_layers * nxb
     dev = ax.device
     stroke = _stroke_params(thickness)
 
@@ -317,7 +313,6 @@ def rasterize_masks_env_plain(
     band = torch.arange(n_bands, device=dev)
     items = torch.nonzero(live[..., None] & (band < ext[..., None]))  # (n, 3)
 
-    strip = torch.zeros(bsz * n_frames * hp * wb, dtype=torch.bool, device=dev)
     rr_in_band = torch.arange(_GRAN, device=dev)
     xs = torch.arange(wb, device=dev, dtype=torch.float32)
     for c in range(0, items.shape[0], _PLAIN_CHUNK):
@@ -342,17 +337,82 @@ def rasterize_masks_env_plain(
             sinv[:, None, None], stroke,
         )  # (n, 16, wb)
         row = b0[:, None] * _GRAN + rr  # (n, 16) local row in the strip
-        flat = (
-            ((env * n_frames + frame)[:, None] * hp + row)[:, :, None] * wb
-            + torch.arange(wb, device=dev)[None, None, :]
-        )
-        strip[flat[hit]] = True
+        yield env, frame, row, hit
 
-    strip = strip.view(bsz, n_layers, nxb, hp, wb)[:, :, :, :h]
-    frames = strip.permute(0, 1, 3, 2, 4).reshape(bsz, n_layers, h, nxb * wb)
-    frames = frames[..., :w]
+
+def _strip_offsets(strip_id, row, hp, wb):
+    """Flat offsets into a (..., hp, wb) strip tensor of the pixels of
+    `_plain_hits`' bands: (n, 16, wb)."""
+    return (
+        (strip_id[:, None] * hp + row)[:, :, None] * wb
+        + torch.arange(wb, device=row.device)[None, None, :]
+    )
+
+
+def _frames_from_strips(strip, h, w, nxb, wb):
+    """(..., nxb, hp, wb) strips -> (..., h, w) frames: lane blocks side by
+    side, padding rows and lanes cut."""
+    lead = strip.shape[:-3]
+    frames = strip[..., :h, :].movedim(-3, -2).reshape(*lead, h, nxb * wb)
+    return frames[..., :w]
+
+
+def rasterize_masks_env_plain(
+    bundle,
+    n_layers: int,
+    resolution: Tuple[int, int],
+    thickness: int,
+    out_dtype: torch.dtype = torch.uint8,
+) -> torch.Tensor:
+    """Plain PyTorch version of the masks kernel: (B, L, H, W) masks from a
+    `compact_env_idx_soa` bundle, `out_dtype` uint8 (0/255) or float32
+    (0/1). Same function and same float arithmetic as ops/csrc/masks.cu:
+    the hits of `_plain_hits` are set in a (B, L*nxb, hp, wb) strip."""
+    h, w = resolution
+    _, hp, _, nxb, wb = _frame_geometry(resolution)
+    bsz = bundle[-1].shape[1]
+    n_frames = n_layers * nxb
+    strip = torch.zeros(bsz * n_frames * hp * wb, dtype=torch.bool,
+                        device=bundle[1].device)
+    for env, frame, row, hit in _plain_hits(bundle, resolution, thickness):
+        flat = _strip_offsets(env * n_frames + frame, row, hp, wb)
+        strip[flat[hit]] = True
+    frames = _frames_from_strips(
+        strip.view(bsz, n_layers, nxb, hp, wb), h, w, nxb, wb
+    )
     one = 255 if out_dtype == torch.uint8 else 1
     return (frames.to(out_dtype) * one).contiguous()
+
+
+def rasterize_rank_env_plain(
+    bundle,
+    n_layers: int,
+    resolution: Tuple[int, int],
+    thickness: int,
+) -> torch.Tensor:
+    """Plain PyTorch version of the rank kernel: (B, H, W) uint8 layer-rank
+    map from a `compact_env_idx_soa` bundle (0 = background, l+1 = layer l
+    painted last), the function of tinycarlo_tpu's `_kernel_env_rank`
+    (rasterize_pallas.py:1493-1558, `_tier_loops` rank_decode :1776-1791).
+
+    The layer is peeled off the band word's stacked frame index (frame =
+    l*nxb + xb) and each hit writes max(strip, l+1) into one (nxb, hp, wb)
+    strip per env. Same stamps as ops/csrc/rank.cu; envs with no live slot
+    give zeros. The ranks are read off the band words: `n_layers` is the
+    layer count they come from.
+    """
+    h, w = resolution
+    _, hp, _, nxb, wb = _frame_geometry(resolution)
+    bsz = bundle[-1].shape[1]
+    strip = torch.zeros(bsz * nxb * hp * wb, dtype=torch.int32,
+                        device=bundle[1].device)
+    for env, frame, row, hit in _plain_hits(bundle, resolution, thickness):
+        lay = frame // nxb
+        flat = _strip_offsets(env * nxb + frame - lay * nxb, row, hp, wb)
+        rank = (lay + 1).to(torch.int32)[:, None, None].expand(hit.shape)
+        strip.scatter_reduce_(0, flat[hit], rank[hit], reduce="amax")
+    frames = _frames_from_strips(strip.view(bsz, nxb, hp, wb), h, w, nxb, wb)
+    return frames.to(torch.uint8).contiguous()
 
 
 def _window_hit_plain(apx, apy, abx, aby, inv, stroke):
@@ -383,52 +443,38 @@ def _window_hit_plain(apx, apy, abx, aby, inv, stroke):
     return d2 <= r2v
 
 
-class MasksKernel:
-    """The masks kernel's wrapper: `ops/csrc/masks.cu` on CUDA tensors,
-    `rasterize_masks_env_plain` on CPU tensors.
+class _BundleKernel:
+    """A CUDA kernel over a `compact_env_idx_soa` bundle, bound with ctypes:
+    its launcher, the bundle checks and the launch counter.
 
     `launches` counts kernel launches (and nothing else), so a run can show
     that its renders went through the kernel. A CUDA bundle either
     launches the kernel or raises; nothing falls back to the plain path.
     """
 
+    NAME = ""  # kernel name in messages; its source is ops/csrc/<NAME>.cu
+    SYMBOL = ""  # the C launch function
+    ARGTYPES = ()
+
     def __init__(self):
         self.launches = 0
         self._fn = None
 
-    # tc_masks_launch's C signature: 9 pointers (the bundle, out), 8 ints
-    # (out_float, B, L, h, w, kp, le, bres), lat2, cap2 and the stream
-    ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
-                + [ctypes.c_float] * 2 + [ctypes.c_void_p])
-
     def _launcher(self):
         if self._fn is None:
-            fn = libraries.get("masks").tc_masks_launch
+            fn = getattr(libraries.get(self.NAME), self.SYMBOL)
             fn.argtypes = self.ARGTYPES
             fn.restype = ctypes.c_int
             self._fn = fn
         return self._fn
 
-    def __call__(
-        self,
-        bundle,
-        n_layers: int,
-        resolution: Tuple[int, int],
-        thickness: int,
-        out_dtype: torch.dtype = torch.uint8,
-    ) -> torch.Tensor:
-        dev = bundle[0].device
-        if dev.type == "cpu":
-            return rasterize_masks_env_plain(
-                bundle, n_layers, resolution, thickness, out_dtype
-            )
-        if dev.type != "cuda":
-            raise ValueError(f"masks kernel: unsupported device {dev}")
-        if out_dtype not in (torch.uint8, torch.float32):
-            raise ValueError(f"masks kernel: out_dtype {out_dtype} not in "
-                             "(uint8, float32)")
+    def _check(self, bundle, n_layers: int, w: int) -> None:
+        """Raise unless the bundle is what the kernel reads: CUDA, int32 /
+        float32, the shapes of one compaction, contiguous."""
         idx, ax, ay, abx, aby, inv, bw, counts = bundle
-        h, w = resolution
+        dev = ax.device
+        if dev.type != "cuda":
+            raise ValueError(f"{self.NAME} kernel: unsupported device {dev}")
         bsz, le = ax.shape
         kp = idx.shape[1]
         want = {
@@ -444,32 +490,132 @@ class MasksKernel:
         for name, (t, dtype, shape) in want.items():
             if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape:
                 raise ValueError(
-                    f"masks kernel: {name} must be {dtype} {shape} on {dev}, "
-                    f"got {t.dtype} {tuple(t.shape)} on {t.device}"
+                    f"{self.NAME} kernel: {name} must be {dtype} {shape} on "
+                    f"{dev}, got {t.dtype} {tuple(t.shape)} on {t.device}"
                 )
             if not t.is_contiguous():
-                raise ValueError(f"masks kernel: {name} must be contiguous")
+                raise ValueError(
+                    f"{self.NAME} kernel: {name} must be contiguous"
+                )
         if le % _n_xblocks(w):
-            raise ValueError("masks kernel: bundle does not match the width")
+            raise ValueError(
+                f"{self.NAME} kernel: bundle does not match the width"
+            )
+
+    def _launch(self, bundle, out, ints, thickness: int) -> torch.Tensor:
+        """Launch on the current stream with the C arguments: the bundle's
+        and out's pointers, `ints`, the stroke's (bres, lat2, cap2) and the
+        stream."""
         stroke = _stroke_params(thickness)
         lat2, cap2 = (0.0, 0.0) if stroke[0] == "bres" else stroke[1:]
-        out = torch.empty((bsz, n_layers, h, w), dtype=out_dtype, device=dev)
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
+        idx, ax, ay, abx, aby, inv, bw, counts = bundle
+        with torch.cuda.device(out.device):
+            stream = torch.cuda.current_stream(out.device).cuda_stream
             err = self._launcher()(
                 counts.data_ptr(), idx.data_ptr(), ax.data_ptr(),
                 ay.data_ptr(), abx.data_ptr(), aby.data_ptr(), inv.data_ptr(),
-                bw.data_ptr(), out.data_ptr(),
-                int(out_dtype == torch.float32), bsz, n_layers, h, w, kp, le,
-                int(stroke[0] == "bres"), lat2, cap2, stream,
+                bw.data_ptr(), out.data_ptr(), *ints, int(stroke[0] == "bres"),
+                lat2, cap2, stream,
             )
         if err != 0:
-            raise RuntimeError(f"masks kernel launch failed: CUDA error {err}")
+            raise RuntimeError(
+                f"{self.NAME} kernel launch failed: CUDA error {err}"
+            )
         self.launches += 1
         return out
 
 
+class MasksKernel(_BundleKernel):
+    """The masks kernel's wrapper: `ops/csrc/masks.cu` on CUDA tensors,
+    `rasterize_masks_env_plain` on CPU tensors."""
+
+    NAME = "masks"
+    SYMBOL = "tc_masks_launch"
+    # tc_masks_launch's C signature: 9 pointers (the bundle, out), 8 ints
+    # (out_float, B, L, h, w, kp, le, bres), lat2, cap2 and the stream
+    ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
+                + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+
+    def __call__(
+        self,
+        bundle,
+        n_layers: int,
+        resolution: Tuple[int, int],
+        thickness: int,
+        out_dtype: torch.dtype = torch.uint8,
+    ) -> torch.Tensor:
+        if bundle[0].device.type == "cpu":
+            return rasterize_masks_env_plain(
+                bundle, n_layers, resolution, thickness, out_dtype
+            )
+        if out_dtype not in (torch.uint8, torch.float32):
+            raise ValueError(f"masks kernel: out_dtype {out_dtype} not in "
+                             "(uint8, float32)")
+        h, w = resolution
+        self._check(bundle, n_layers, w)
+        bsz, le = bundle[1].shape
+        out = torch.empty((bsz, n_layers, h, w), dtype=out_dtype,
+                          device=bundle[1].device)
+        return self._launch(bundle, out, (
+            int(out_dtype == torch.float32), bsz, n_layers, h, w,
+            bundle[0].shape[1], le,
+        ), thickness)
+
+
+class RankKernel(_BundleKernel):
+    """The rank kernel's wrapper: `ops/csrc/rank.cu` on CUDA tensors,
+    `rasterize_rank_env_plain` on CPU tensors. Output (B, H, W) uint8."""
+
+    NAME = "rank"
+    SYMBOL = "tc_rank_launch"
+    # tc_rank_launch's C signature: 9 pointers (the bundle, out), 7 ints
+    # (B, L, h, w, kp, le, bres), lat2, cap2 and the stream
+    ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
+                + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+
+    def __call__(
+        self,
+        bundle,
+        n_layers: int,
+        resolution: Tuple[int, int],
+        thickness: int,
+    ) -> torch.Tensor:
+        if not 0 < n_layers < 256:
+            raise ValueError(f"rank kernel: {n_layers} layers do not fit "
+                             "uint8 ranks")
+        if bundle[0].device.type == "cpu":
+            return rasterize_rank_env_plain(
+                bundle, n_layers, resolution, thickness
+            )
+        h, w = resolution
+        self._check(bundle, n_layers, w)
+        bsz, le = bundle[1].shape
+        out = torch.empty((bsz, h, w), dtype=torch.uint8,
+                          device=bundle[1].device)
+        return self._launch(bundle, out, (
+            bsz, n_layers, h, w, bundle[0].shape[1], le,
+        ), thickness)
+
+
 masks_kernel = MasksKernel()
+rank_kernel = RankKernel()
+
+
+def _packed_bundle(u0, v0, u1, v1, draw, edge_layer, n_layers, resolution,
+                   thickness, max_visible, layer_bounds):
+    """The production compaction of a packed edge axis with any leading
+    shape: budget max_visible * ceil(w/128) copies (all copies when None).
+    Returns (leading shape, bundle)."""
+    lead = draw.shape[:-1]
+    e = draw.shape[-1]
+    h, w = resolution
+    nxb = _n_xblocks(w)
+    k = e * nxb if max_visible is None else min(max_visible * nxb, e * nxb)
+    u0, v0, u1, v1, draw = (x.reshape(-1, e) for x in (u0, v0, u1, v1, draw))
+    return lead, compact_env_idx_soa(
+        u0, v0, u1, v1, draw, k, h, thickness, edge_layer=edge_layer,
+        n_layers=n_layers, w=w, layer_bounds=layer_bounds,
+    )
 
 
 def rasterize_masks_packed_soa(
@@ -493,17 +639,39 @@ def rasterize_masks_packed_soa(
     `rasterize_masks_packed_pallas_soa` (rasterize_pallas.py:2388-2503) for
     the fast stroke. uint8 gives 0/255 masks, float32 0/1 masks."""
     _check_stroke(thickness, stroke)
-    lead = draw.shape[:-1]
-    e = draw.shape[-1]
-    h, w = resolution
-    nxb = _n_xblocks(w)
-    k = e * nxb if max_visible is None else min(max_visible * nxb, e * nxb)
-    u0, v0, u1, v1, draw = (x.reshape(-1, e) for x in (u0, v0, u1, v1, draw))
-    bundle = compact_env_idx_soa(
-        u0, v0, u1, v1, draw, k, h, thickness, edge_layer=edge_layer,
-        n_layers=n_layers, w=w, layer_bounds=layer_bounds,
+    lead, bundle = _packed_bundle(
+        u0, v0, u1, v1, draw, edge_layer, n_layers, resolution, thickness,
+        max_visible, layer_bounds,
     )
     masks = masks_kernel(
         bundle, n_layers, tuple(resolution), thickness, out_dtype=out_dtype
     )
-    return masks.reshape(*lead, n_layers, h, w)
+    return masks.reshape(*lead, n_layers, *resolution)
+
+
+def rasterize_rank_packed_soa(
+    u0: torch.Tensor,  # (..., E) packed edge axis, SoA pixel coords
+    v0: torch.Tensor,
+    u1: torch.Tensor,
+    v1: torch.Tensor,
+    draw: torch.Tensor,  # (..., E)
+    edge_layer: torch.Tensor,  # (E,) int32 layer id per packed edge
+    n_layers: int,
+    resolution: Tuple[int, int],
+    thickness: int = 1,
+    max_visible: Optional[int] = None,
+    layer_bounds: Optional[Tuple[int, ...]] = None,
+    stroke: str = "fast",
+) -> torch.Tensor:
+    """(..., H, W) uint8 layer-rank map from the packed edge axis: the
+    compaction of `rasterize_masks_packed_soa`, then the rank kernel --
+    the counterpart of `rasterize_rank_packed_soa`
+    (rasterize_pallas.py:1626-1661). `rasterize.rgb_from_rank` composites
+    it into the rgb frame of the masks' paint-order composite."""
+    _check_stroke(thickness, stroke)
+    lead, bundle = _packed_bundle(
+        u0, v0, u1, v1, draw, edge_layer, n_layers, resolution, thickness,
+        max_visible, layer_bounds,
+    )
+    rank = rank_kernel(bundle, n_layers, tuple(resolution), thickness)
+    return rank.reshape(*lead, *resolution)
