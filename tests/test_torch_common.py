@@ -130,7 +130,8 @@ def test_port_imports_without_jax():
     blocked."""
     modules = port_modules()
     for name in ("models.tinycar_net", "train.evaluate", "ops.rasterize",
-                 "ops.rasterize_kernels", "env", "convert"):
+                 "ops.rasterize_kernels", "ops.cv2_stroke", "env",
+                 "convert"):
         assert f"tinycarlo_torch.{name}" in modules
     code = (
         "import sys\n"

@@ -147,3 +147,75 @@ def test_rank_packed_entry_launches_kernel():
     with pytest.raises(ValueError, match="float32"):
         rk.rank_kernel(bundle[:1] + (bundle[1].double(),) + bundle[2:], L,
                        (h, w), 2)
+
+
+def _exact_bundle(t, h, w, kb, seed, b=48, L=5, E=100):
+    """An exact-stroke bundle on the card: random segments, half of them
+    deep-clipped (~400 px off frame), the pinned segment (150, -151) ->
+    (-378, 406) whose swapped clipped outline edge needs its far dot, and
+    horizontal and vertical segments (ties of the quad's top vertex)."""
+    u0, v0, u1, v1, draw, lay = _segments(seed, b, E, h, w, L, "cuda")
+    rng = np.random.default_rng(seed + 1)
+    deep = torch.tensor(rng.random((b, E)) < 0.5, device="cuda")
+    far = [torch.tensor(rng.uniform(-400, s + 400, (b, E)),
+                        dtype=torch.float32, device="cuda")
+           for s in (w, h, w, h)]
+    u0, v0, u1, v1 = (torch.where(deep, f, x)
+                      for f, x in zip(far, (u0, v0, u1, v1)))
+    v1[:, 1:4] = v0[:, 1:4]  # horizontal
+    u1[:, 4:7] = u0[:, 4:7]  # vertical
+    u0[:, 0], v0[:, 0], u1[:, 0], v1[:, 0] = 150.0, -151.0, -378.0, 406.0
+    draw[1:, :7] = True
+    return rk.compact_env_exact_soa(
+        u0, v0, u1, v1, draw, kb * rk._n_xblocks(w), h, t, edge_layer=lay,
+        n_layers=L, w=w,
+    )
+
+
+# (t, h, w, k per block): the lane split off (w = 48) and on, odd h,
+# an oversubscribed budget, and 480x640 (a 61 KB strip)
+EXACT_CASES = [(2, 128, 160, 100), (3, 30, 48, 100), (5, 64, 160, 6),
+               (2, 480, 640, 100)]
+
+
+@pytest.mark.parametrize("t,h,w,kb", EXACT_CASES)
+@pytest.mark.parametrize("out_dtype", [torch.uint8, torch.float32])
+def test_exact_kernel_matches_plain(t, h, w, kb, out_dtype):
+    """Bit-equal to its plain version (int32 arithmetic in both); float32
+    output is 0/1."""
+    _require_cuda()
+    L = 5
+    bundle = _exact_bundle(t, h, w, kb, t * 11 + h, L=L)
+    before = rk.exact_kernel.launches
+    got = rk.exact_kernel(bundle, L, (h, w), t, out_dtype=out_dtype)
+    assert rk.exact_kernel.launches == before + 1
+    want = rk.rasterize_masks_exact_env_plain(bundle, L, (h, w), t,
+                                              out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert got.dtype == out_dtype and got.shape == (48, L, h, w)
+    assert torch.equal(got, want)
+    one = 255 if out_dtype == torch.uint8 else 1
+    assert bool(((want == 0) | (want == one)).all())
+    assert want.sum() > 0 and not want[0].any()
+
+
+def test_exact_packed_entry_launches_kernel():
+    """rasterize_masks_packed_soa with the exact stroke at t >= 2 on CUDA
+    tensors goes through the exact kernel (not the masks kernel), which
+    checks its inputs and raises instead of falling back."""
+    _require_cuda()
+    L, E, h, w = 5, 100, 64, 160
+    u0, v0, u1, v1, draw, lay = _segments(7, 16, E, h, w, L, "cuda")
+    before = (rk.exact_kernel.launches, rk.masks_kernel.launches)
+    out = rk.rasterize_masks_packed_soa(u0, v0, u1, v1, draw, lay, L, (h, w),
+                                        2, max_visible=128, stroke="exact")
+    torch.cuda.synchronize()
+    assert (rk.exact_kernel.launches, rk.masks_kernel.launches) == (
+        before[0] + 1, before[1])
+    assert out.shape == (16, L, h, w) and out.dtype == torch.uint8
+    idx, fields, counts = _exact_bundle(2, h, w, 128, 7, b=16, L=L)
+    with pytest.raises(ValueError, match="int32"):
+        rk.exact_kernel((idx, fields[:5] + (fields[5].long(),) + fields[6:],
+                         counts), L, (h, w), 2)
+    with pytest.raises(ValueError, match="30"):
+        rk.exact_kernel((idx, fields[:-1], counts), L, (h, w), 2)

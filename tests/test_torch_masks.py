@@ -172,7 +172,8 @@ def test_binding_matches_c_signature():
 
 def test_wrapper_dispatch_and_counter():
     """On CPU tensors the wrapper takes the plain version and counts no
-    launch; the exact stroke at t >= 2 is not ported."""
+    launch; the exact stroke at t >= 2 routes to the exact compaction and
+    the exact kernel's plain version instead of the masks kernel."""
     t, h, w = 2, 32, 160
     _, bundle = _case(50, h, w, t)
     tb = _torch_bundle(bundle)
@@ -182,9 +183,13 @@ def test_wrapper_dispatch_and_counter():
     np.testing.assert_array_equal(
         out.numpy(), rk.rasterize_masks_env_plain(tb, L, (h, w), t).numpy()
     )
-    with pytest.raises(NotImplementedError, match="M11"):
-        rk.rasterize_masks_packed_soa(
-            *(torch.zeros(1, 8) for _ in range(4)),
-            torch.zeros(1, 8, dtype=torch.bool),
-            torch.zeros(8, dtype=torch.int32), 1, (h, w), 2, stroke="exact",
-        )
+    segs = random_segments(51, B, E, h, w, L)
+    u0, v0, u1, v1, draw, lay = (torch.from_numpy(x) for x in segs)
+    args = (u0[:, 0], v0[:, 0], u1[:, 0], v1[:, 0], draw[:, 0])
+    exact = rk.rasterize_masks_packed_soa(*args, lay, L, (h, w), t,
+                                          stroke="exact")
+    assert rk.masks_kernel.launches == before
+    want = rk.rasterize_masks_exact_env_plain(rk.compact_env_exact_soa(
+        *args, E * rk._n_xblocks(w), h, t, edge_layer=lay, n_layers=L, w=w,
+    ), L, (h, w), t)
+    assert torch.equal(exact, want) and exact.sum() > 0

@@ -117,7 +117,9 @@ def test_rank_plain_on_jax_bundle(t):
 
 def test_rank_wrapper_dispatch_and_counter():
     """On CPU tensors the rank wrapper takes the plain version and counts
-    no launch; the exact stroke at t >= 2 is not ported for rank either."""
+    no launch; the exact stroke at t >= 2 is not the rank kernel's: it
+    raises and names the masks route (the JAX package's env never calls
+    the rank kernel under exact, env.py:274-275)."""
     (u0, v0, u1, v1, draw, lay), L, (h, w) = _segments_564()
     f = lambda x: torch.from_numpy(x)  # noqa: E731
     bundle = rk.compact_env_idx_soa(
@@ -128,7 +130,7 @@ def test_rank_wrapper_dispatch_and_counter():
     out = rk.rank_kernel(bundle, L, (h, w), 2)
     assert rk.rank_kernel.launches == before
     assert torch.equal(out, rk.rasterize_rank_env_plain(bundle, L, (h, w), 2))
-    with pytest.raises(NotImplementedError, match="M11"):
+    with pytest.raises(ValueError, match="masks route"):
         rk.rasterize_rank_packed_soa(f(u0), f(v0), f(u1), f(v1), f(draw),
                                      f(lay), L, (h, w), 2, stroke="exact")
 
@@ -226,7 +228,8 @@ def test_rendered_formats_decode_the_rank_map(rank_env):
 def test_vector_obs_follow_the_format(rank_env):
     """vector.reset / vector.step return observations in the configured
     format; a float out_dtype is only defined for classes, an unknown
-    format and the exact stroke at t >= 2 raise."""
+    format raise; with the exact stroke at t >= 2 the rgb frame is the
+    composite of the exact masks' rank map."""
     params, vstate = rank_env
     p = _with_format(params, "rgb")
     rows = torch.arange(6) % p.map_data.spawns.count
@@ -241,5 +244,8 @@ def test_vector_obs_follow_the_format(rank_env):
     with pytest.raises(ValueError, match="observation_space_format"):
         penv.render_observation_batch(p, vs.env, fmt="depth")
     exact = _with_format(params, "rgb", stroke="exact")
-    with pytest.raises(NotImplementedError, match="M11"):
-        penv.render_observation_batch(exact, vs.env)
+    masks = penv.render_observation_batch(exact, vs.env, fmt="classes")
+    rgb = penv.render_observation_batch(exact, vs.env)
+    assert torch.equal(rgb, pras.rgb_from_rank(
+        pras.rank_from_masks(masks), exact.map_data.laneline_colors))
+    assert rgb.shape == obs.shape and rgb.sum() > 0

@@ -7,9 +7,8 @@ All fields are static Python values.
 
 The port's own copy of tinycarlo_tpu/config.py, field for field: importing
 the JAX package's module would run tinycarlo_tpu/__init__.py, which
-imports jax. In this package `stroke="exact"` at thickness >= 2 and
-`MapConfig.query_grid=True` are not ported yet and raise
-NotImplementedError where they are used.
+imports jax. In this package `MapConfig.query_grid=True` is not ported
+yet and raises NotImplementedError where it is used.
 """
 from __future__ import annotations
 
@@ -67,9 +66,9 @@ class CameraConfig:
     # reference YAML schema). "fast": the calibrated rectangle-body +
     # end-cap stroke (rasterize._split_radii) -- the throughput path.
     # "exact": the bit-exact cv2.polylines thick-stroke replica
-    # (ops/cv2_stroke.py) for reference-checkpoint portability; runs on
-    # a dedicated TPU Pallas kernel stamp (~3.5x the fast stamp's cost,
-    # docs/KERNELS.md round-4) and on the tiled XLA path on CPU.
+    # (ops/cv2_stroke.py) for reference-checkpoint portability; renders
+    # through its own compaction and kernel (ops/csrc/exact.cu on the GPU,
+    # its plain PyTorch version on the CPU; its cost is in PERF.md).
     # Thickness 1 is bit-exact in BOTH modes.
     stroke: str = "fast"
 

@@ -13,7 +13,9 @@ Observations follow `sim.observation_space_format` (shapes in
 0/1 with `out_dtype=torch.float32`) from the masks kernel, or the rank
 kernel's (B, H, W) layer-rank map -- "rank" itself, or decoded to "rgb"
 (B, H, W, 3) and "rgb_planar" (B, 3, H, W) uint8. Both kernels read the
-compaction of the packed camera projection.
+compaction of the packed camera projection. With `camera.stroke: exact`
+at line_thickness >= 2 every format renders through the exact kernel's
+cv2 ThickLine masks instead, decoded for rank, rgb and rgb_planar.
 """
 from __future__ import annotations
 
@@ -144,19 +146,23 @@ def render_observation_batch(
     """Observations of a batch of states in format `fmt` (default: the
     config's): packed projection and compaction, then the masks kernel
     (classes) or the rank kernel and its decode (rank, rgb, rgb_planar).
+    With the exact stroke at t >= 2 every format starts from the exact
+    kernel's masks, as the JAX package's does (env.py:270-319): classes
+    returns them, rank, rgb and rgb_planar decode them.
     tinycarlo_tpu.env.render_observation_batch (env.py:245-319).
 
     `out_dtype=None` keeps the observation contract (uint8); float32 gives
-    0/1 class masks straight from the masks kernel for in-graph consumers,
-    and is only defined for classes."""
+    0/1 class masks straight from the masks (or exact) kernel for in-graph
+    consumers, and is only defined for classes."""
     fmt = _check_format(params, fmt)
     if out_dtype is not None and fmt != "classes":
         raise ValueError("float out_dtype is only defined for classes masks")
     cfg = params.cfg
     md = params.map_data
     u0, v0, u1, v1, draw = _project_packed_batch_soa(params, states)
-    if fmt == "classes":
-        return rk.rasterize_masks_packed_soa(
+    exact = ras._exact(cfg.camera.line_thickness, cfg.camera.stroke)
+    if fmt == "classes" or exact:
+        masks = rk.rasterize_masks_packed_soa(
             u0, v0, u1, v1, draw, md.packed_edge_layer, md.n_layers,
             tuple(cfg.camera.resolution), cfg.camera.line_thickness,
             max_visible=cfg.camera.max_visible_segments,
@@ -164,6 +170,15 @@ def render_observation_batch(
             out_dtype=torch.uint8 if out_dtype is None else out_dtype,
             stroke=cfg.camera.stroke,
         )
+        if fmt == "classes":
+            return masks
+        # the rank kernel stamps the fast stroke only (env.py:274-275):
+        # decode the exact masks (:308-319)
+        if fmt == "rgb_planar":
+            return ras.rasterize_rgb_planar(masks, md.laneline_colors)
+        rank = ras.rank_from_masks(masks)
+        return rank if fmt == "rank" else ras.rgb_from_rank(
+            rank, md.laneline_colors)
     # rgb fast path (env.py:270-297): the rank kernel's layer map, then
     # the palette composite reads it instead of per-layer masks
     rank = rk.rasterize_rank_packed_soa(

@@ -57,31 +57,6 @@ using namespace tc;
 
 constexpr int kThreads = 256;
 
-// Write `cols` lanes of rows [0, h) from the strip (or zeros when strip is
-// null) to dst, whose rows are `w` bytes apart.
-__device__ void store_ranks(uint8_t* dst, const uint8_t* strip,
-                            const Params& p, int cols, bool vec) {
-  if (vec) {
-    const int c4 = cols / 4;
-    for (int i = threadIdx.x; i < p.h * c4; i += blockDim.x) {
-      int r = i / c4;
-      int x = (i - r * c4) * 4;
-      uchar4 v = make_uchar4(0, 0, 0, 0);
-      if (strip) {
-        const uint8_t* s = strip + r * p.wb + x;
-        v = make_uchar4(s[0], s[1], s[2], s[3]);
-      }
-      *reinterpret_cast<uchar4*>(dst + (size_t)r * p.w + x) = v;
-    }
-    return;
-  }
-  for (int i = threadIdx.x; i < p.h * cols; i += blockDim.x) {
-    int r = i / cols;
-    int x = i - r * cols;
-    dst[(size_t)r * p.w + x] = strip ? strip[r * p.wb + x] : 0;
-  }
-}
-
 __global__ void __launch_bounds__(kThreads)
 rank_kernel(Params p, uint8_t* __restrict__ out, int strip_bytes) {
   extern __shared__ __align__(16) uint8_t smem[];
@@ -95,7 +70,7 @@ rank_kernel(Params p, uint8_t* __restrict__ out, int strip_bytes) {
 
   const int n = p.counts[env];
   if (n <= 0) {
-    store_ranks(dst, nullptr, p, cols, vec);
+    store_strip<RawU8>(dst, nullptr, p, cols, vec);
     return;
   }
 
@@ -137,17 +112,13 @@ rank_kernel(Params p, uint8_t* __restrict__ out, int strip_bytes) {
     if (stamped) __syncthreads();
   }
   __syncthreads();
-  store_ranks(dst, strip, p, cols, vec);
+  store_strip<RawU8>(dst, strip, p, cols, vec);
 }
 
 int launch(const Params& p, uint8_t* out, cudaStream_t stream) {
-  const int strip_bytes = (p.hp * p.wb + 15) / 16 * 16;
-  const int smem = strip_bytes + 2 * p.kp * (int)sizeof(int);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        rank_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-  }
+  int strip_bytes, smem;
+  cudaError_t err = strip_smem(p, 2, rank_kernel, &strip_bytes, &smem);
+  if (err != cudaSuccess) return (int)err;
   const long long blocks = (long long)p.B * p.nxb;
   if (blocks > 0) {
     rank_kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(p, out,
@@ -164,6 +135,7 @@ extern "C" int tc_rank_launch(
     const int32_t* bw, void* out, int B, int L, int h, int w, int kp, int le,
     int bres, float lat2, float cap2, void* stream) {
   tc::Params p;
+  tc::set_geometry(p, B, L, h, w, kp, le);
   p.counts = counts;
   p.idx = idx;
   p.ax = ax;
@@ -172,11 +144,6 @@ extern "C" int tc_rank_launch(
   p.aby = aby;
   p.inv = inv;
   p.bw = bw;
-  p.B = B;
-  p.L = L;
-  tc::set_geometry(p, h, w);
-  p.kp = kp;
-  p.le = le;
   p.bres = bres;
   p.lat2 = lat2;
   p.cap2 = cap2;

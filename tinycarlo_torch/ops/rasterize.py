@@ -2,16 +2,14 @@
 
 Counterpart of the parts of tinycarlo_tpu/ops/rasterize.py that the
 port's main path and its tests use: cv2's integer endpoint truncation,
-clipLine and closed-form 8-connected Bresenham at thickness 1, the
-calibrated split stroke (rectangle body + end caps) at t >= 2, and the
-dense `rasterize_masks`. The dense rasterizer evaluates every (pixel,
-segment) pair and is the CPU oracle for the masks kernel
-(ops/rasterize_kernels.py, ops/csrc/masks.cu). The decodes turn a layer-
-rank map (the rank kernel's output) or class masks into the rgb,
-rgb_planar and classes formats.
-
-Not ported yet: the bit-exact cv2 ThickLine stroke (`stroke="exact"` at
-t >= 2, ROADMAP M11).
+clipLine and closed-form 8-connected Bresenham at thickness 1, at t >= 2
+the calibrated split stroke (rectangle body + end caps, `stroke="fast"`)
+or the bit-exact cv2 ThickLine stroke (`stroke="exact"`, ops/cv2_stroke.py),
+and the dense `rasterize_masks`. The dense rasterizer evaluates every
+(pixel, segment) pair and is the CPU oracle for the masks and exact
+kernels (ops/rasterize_kernels.py, ops/csrc/masks.cu and exact.cu). The
+decodes turn a layer-rank map (the rank kernel's output) or class masks
+into the rgb, rgb_planar and classes formats.
 """
 from __future__ import annotations
 
@@ -19,6 +17,12 @@ import math
 from typing import Tuple
 
 import torch
+
+from tinycarlo_torch.ops.cv2_stroke import (
+    stroke_y_extent,
+    thick_hit,
+    thick_params,
+)
 
 
 def _split_radii(thickness: int) -> Tuple[float, float]:
@@ -31,17 +35,18 @@ def _split_radii(thickness: int) -> Tuple[float, float]:
     return half + 0.5, float(half)
 
 
-def _check_stroke(thickness: int, stroke: str) -> None:
-    if stroke == "exact" and thickness >= 2:
-        raise NotImplementedError(
-            'stroke="exact" at thickness >= 2 is not ported yet (ROADMAP M11)'
-        )
+def _exact(thickness: int, stroke: str) -> bool:
+    """Whether a stroke renders through the cv2 ThickLine replica: the
+    exact stroke at t >= 2 (at t = 1 both strokes are cv2's Bresenham)."""
+    return stroke == "exact" and thickness >= 2
 
 
 def _stroke_radius_sq(thickness: int, stroke: str = "fast") -> float:
     """Squared band-extent radius (the largest distance at which any pixel
     can be painted) -- used for band culling and compaction extents."""
-    _check_stroke(thickness, stroke)
+    if _exact(thickness, stroke):
+        r = stroke_y_extent(thickness)
+        return r * r
     r = _split_radii(thickness)[0]
     return r * r
 
@@ -160,9 +165,13 @@ def _int_endpoints(p0: torch.Tensor, p1: torch.Tensor, dtype):
 def _segment_hit(px, py, ax, ay, bx, by, thickness: int, resolution,
                  stroke: str = "fast"):
     """Per-(pixel, segment) hit predicate with cv2 stroke semantics: exact
-    clipLine + 8-connected Bresenham at thickness 1; the calibrated split
-    stroke at t >= 2. Pixel coords broadcast against segment coords."""
-    _check_stroke(thickness, stroke)
+    clipLine + 8-connected Bresenham at thickness 1; at t >= 2 the
+    calibrated split stroke, or with stroke="exact" the cv2 ThickLine
+    replica (bit-equal to cv2.polylines under float64). Pixel coords
+    broadcast against segment coords."""
+    if _exact(thickness, stroke):
+        params = thick_params(ax, ay, bx, by, thickness, resolution)
+        return thick_hit(px, py, params, thickness)
     if thickness <= 1:
         cx1, cy1, cx2, cy2, acc = _clip_line_cv2(
             resolution[1], resolution[0], ax, ay, bx, by
