@@ -19,8 +19,18 @@ any failed check:
    3, 5; 48x96, 128x160, 480x640; deep-clipped segments, the pinned
    swapped-edge segment, horizontal and vertical ties, an empty env, an
    oversubscribed budget) and on real bundles, uint8 and float32 (0/1).
-   Bit-equality is required: the kernels are built with -fmad=false.
-4. main path (classes): bench.py's workload through the port's entry
+   The frame, env and segment kernels (the older `compact_soa`,
+   `compact_env_soa` and `compact_env_seg` layouts) on random bundles
+   (t = 1, 2, 3; gran 8 and 16; 1, 2, 3 and 5 lane blocks; 30x200 to
+   480x640; split and unsplit; odd and oversubscribed budgets; an empty
+   env). Bit-equality is required: the kernels are built with -fmad=false.
+4. rasterizer benchmark: tinycarlo_torch.benchmarks.rasterize_bench at
+   full size, every mode once (each kernel mode launching its kernel once
+   a render and each compaction mode none, every layout's masks with the
+   same checksum, nothing dropped); then on each kernel mode's 4096-env
+   bundle the kernel against
+   its plain version, both timed, and its bound.
+5. main path (classes): bench.py's workload through the port's entry
    points -- make_env_params, vector.reset(4096), the segment-overflow
    guard, then vector.step with Stanley actions and max_episode_steps=1000,
    the observation rendered every step and consumed by a checksum. The
@@ -28,14 +38,14 @@ any failed check:
    (median of repeats, with spread) and per-stage ms; then the last
    observation against the plain version on the same states and a small
    rollout against the port on the CPU.
-5. exact classes: the same workload with camera.stroke: exact (cv2's
+6. exact classes: the same workload with camera.stroke: exact (cv2's
    ThickLine stroke, the exact kernel): env-steps/s, per-stage ms, the
    device idle share and peak memory; exact-kernel launches equal to the
    renders and no masks-kernel launch; a small rollout against the CPU
    port (frames equal wherever the two devices' exact bundles are); and a
    sample of the card's exact frames against the port's
    pure-Python cv2 oracle (`thick_stroke_mask_ref`), segment by segment.
-6. serving (rgb): the bundled pretrained combo (models.load_pretrained)
+7. serving (rgb): the bundled pretrained combo (models.load_pretrained)
    through the port's `train.evaluate` on examples/config_simple_layout.yaml,
    whose rgb frames come from the rank kernel:
    a. the example's protocol (examples/benchmark_tinycar_net.py:92-98):
@@ -47,7 +57,7 @@ any failed check:
       per-stage ms, the device idle share and the peak memory; the rank
       kernel's launch count must equal the renders;
    c. 8 envs x 20 combo-driven steps on the card and on the CPU port.
-7. exact serving: the same config with camera.stroke: exact, frames from
+8. exact serving: the same config with camera.stroke: exact, frames from
    the exact kernel's masks (the rank kernel is not launched):
    a. benchmarks/policy_parity.py's protocol: maneuvers 0, 1, 2, 4
       sequential episodes of 500 steps, one worker process per maneuver
@@ -57,7 +67,7 @@ any failed check:
       to the renders, the device idle share;
    c. 8 envs x 20 combo-driven steps on the card and on the CPU port
       (frames equal wherever the two devices' exact bundles are).
-8. results: the `kernels` JSON line, the card line and, last, the `ok`
+9. results: the `kernels` JSON line, the card line and, last, the `ok`
    JSON line.
 
 Every time is measured on the card in this run (CUDA events, or host
@@ -306,14 +316,14 @@ def live_copies(rk, idx, bw, counts, res):
     return env, e, word & 511, frame, rowband - frame * n_bands, frame % nxb
 
 
-def box_extent(rk, res, x0, y0, x1, y1, r, nb, b0, xb):
+def box_extent(rk, res, x0, y0, x1, y1, r, nb, b0, xb, gran=16, split=True):
     """(columns, rows) of each live copy's segment bounding box, padded by
-    the stroke radius r and clipped to the copy's stamped bands and to the
-    frame (0 for a copy with no band): the only pixels the copy can
-    light."""
+    the stroke radius r and clipped to the copy's stamped bands (of `gran`
+    rows) and to the frame or its lane block (0 for a copy with no band):
+    the only pixels the copy can light."""
     import torch
 
-    n_bands, hp, win, nxb, wb = rk._frame_geometry(res)
+    n_bands, hp, win, nxb, wb = rk._frame_geometry(res, gran, split)
     h, w = res
 
     def span(lo, hi, clip_lo, clip_hi):
@@ -322,8 +332,8 @@ def box_extent(rk, res, x0, y0, x1, y1, r, nb, b0, xb):
         last = torch.minimum(torch.floor(hi), clip_hi.float() - 1)
         return torch.clamp_min(last - first + 1, 0)
 
-    row0 = b0 * rk._GRAN
-    rows = torch.clamp_min(nb, win // rk._GRAN) * rk._GRAN
+    row0 = b0 * gran
+    rows = torch.clamp_min(nb, win // gran) * gran
     cols = span(torch.minimum(x0, x1) - r, torch.maximum(x0, x1) + r,
                 torch.zeros_like(xb), torch.clamp_max(w - xb * rk._XB, wb))
     ys = span(torch.minimum(y0, y1) - r, torch.maximum(y0, y1) + r, row0,
@@ -391,6 +401,60 @@ def exact_bytes_and_ops(rk, bundle, res, t, out_bytes):
     return n_in + out_bytes, int(n_ops)
 
 
+def soa_bytes_and_ops(rk, mode, soa, res, t, gran, split, out_bytes):
+    """The least work of the frame, env or segment kernel (`mode` "full",
+    "env"/"cur" or "seg" of the rasterizer benchmark) over its bundle, as
+    bundle_bytes_and_ops counts it: bytes of the counts, the live slots'
+    SoA entries (and idx entries) read once and the output written once;
+    float32 operations of the stamp over each live stamp's `box_extent`
+    (one per touched lane block of a segment slot)."""
+    import torch
+
+    n_bands, hp, win, nxb, wb = rk._frame_geometry(res, gran, split)
+    stroke = rk._stroke_params(t)
+    r = 0.0 if stroke[0] == "bres" else max(stroke[1], stroke[2]) ** 0.5
+    if mode == "seg":
+        idx, ax, ay, abx, aby, inv, bw, counts = soa
+        k = idx.shape[1] - 7
+        env, s = torch.nonzero(torch.arange(k, device=idx.device)[None]
+                               < counts[0][:, None], as_tuple=True)
+        e = idx[env, s].long()
+        word = bw[env, e]
+        nb = (word >> nxb) & 511
+        enc = (word >> nxb) >> 9
+        lay = enc // (nxb * n_bands)
+        blocks = torch.arange(nxb, device=idx.device)
+        c, xb = torch.nonzero((((word[:, None] >> blocks) & 1) == 1)
+                              & (nb[:, None] > 0), as_tuple=True)
+        env, e, nb, lay = env[c], e[c], nb[c], lay[c]
+        b0 = enc[c] - lay * nxb * n_bands
+        x0 = ax[env, e] - (xb * rk._XB).float()
+        y0 = ay[env, e] - (lay * nxb * hp).float()
+        n_in = counts.numel() * 4 + int(s.numel()) * (4 + 6 * 4)
+    else:
+        *arrays, counts = soa
+        # (B*L, k) frames of compact_soa, (B, k) envs of compact_env_soa
+        ax, ay, abx, aby, inv, bw = (x.reshape(-1, x.shape[-1])
+                                     for x in arrays)
+        k = ax.shape[1]
+        f, s = torch.nonzero(
+            (torch.arange(k, device=ax.device)[None] < counts[0][:, None])
+            & ((bw & 511) > 0), as_tuple=True)
+        word = bw[f, s]
+        nb = word & 511
+        frame = (word >> 9) // n_bands
+        b0 = (word >> 9) - frame * n_bands
+        xb = frame % nxb
+        env, e = f, s
+        x0 = ax[f, s]
+        y0 = ay[f, s] - (frame * hp).float()
+        n_in = counts.numel() * 4 + int(f.numel()) * 6 * 4
+    cols, rows = box_extent(rk, res, x0, y0, x0 + abx[env, e],
+                            y0 + aby[env, e], r, nb, b0, xb, gran, split)
+    pixels = int((cols * rows).sum().item())
+    return n_in + out_bytes, pixels * OPS_PER_PIXEL[stroke[0]]
+
+
 def bound(n_bytes, n_ops, peak_ops):
     """(bound ms, "bytes" or "operations") on the H100."""
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
@@ -438,17 +502,21 @@ def main():
     params_exact = with_stroke(params, "exact")
     max_err, rank_err = check_kernels(rk, ras, fenv, vector, params, "cuda")
     exact_err = check_exact_kernels(rk, fenv, vector, params_exact, "cuda")
+    soa_errs = check_soa_kernels(rk, "cuda")
 
-    # ---- 4. main path --------------------------------------------------------
+    # ---- 4. rasterizer benchmark --------------------------------------------
+    soa_entries = rasterizer_bench(card, rk, soa_errs)
+
+    # ---- 5. main path --------------------------------------------------------
     kernels = [classes_path(card, rk, fenv, vector, stanley_steering, params,
                             max_err, FAST_REPEATS)]
 
-    # ---- 5. exact classes ----------------------------------------------------
+    # ---- 6. exact classes ----------------------------------------------------
     exact_entry = classes_path(card, rk, fenv, vector, stanley_steering,
                                params_exact, exact_err, REPEATS)
     check_exact_oracle(fenv, rk, params_exact, exact_entry.pop("run"))
 
-    # ---- 6, 7. serving, fast and exact --------------------------------------
+    # ---- 7, 8. serving, fast and exact --------------------------------------
     kernels[0].pop("run")
     # the protocols' three maneuvers run at once, one worker process each:
     # at B = 1 or 5 a step is host-bound
@@ -457,8 +525,9 @@ def main():
         kernels.append(serve(card, rank_err, pool))
         kernels.append(exact_entry)
         serve_exact(card, pool)
+    kernels += soa_entries
 
-    # ---- 8. results ----------------------------------------------------------
+    # ---- 9. results ----------------------------------------------------------
     print(f"chip_smoke: {time.perf_counter() - start:.1f} s after the "
           f"device check")
     print(json.dumps({"kernels": kernels}))
@@ -471,7 +540,7 @@ def main():
 
 def classes_path(card, rk, fenv, vector, stanley_steering, params, err,
                  repeats):
-    """Phases 4 and 5: the bench workload on the params' stroke, its
+    """Phases 5 and 6: the bench workload on the params' stroke, its
     checks and stage times. Returns the kernel's entry of the `kernels`
     line, with the run under "run"."""
     import torch
@@ -679,6 +748,195 @@ def check_exact_kernels(rk, fenv, vector, params_exact, dev):
           f"{len(cases)} random exact bundles (t = 2, 3, 5; 48x96, "
           f"128x160, 480x640) and 384 real envs, uint8 and float32 (0/1)")
     return err
+
+
+def soa_segments(seed, b, nl, e, h, w, dev):
+    """Numpy-seeded per-layer segments on `dev`: p0, p1 (b, nl, e, 2) and
+    draw (b, nl, e), short, tall, off-frame and block-crossing; env 0
+    draws nothing."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    p0 = np.stack([rng.uniform(-40, w + 40, (b, nl, e)),
+                   rng.uniform(-40, h + 40, (b, nl, e))], -1)
+    p1 = p0 + np.stack([rng.uniform(-90, 90, (b, nl, e)),
+                        rng.uniform(-70, 70, (b, nl, e))], -1)
+    draw = rng.random((b, nl, e)) < 0.7
+    draw[0] = False
+    f = lambda x: torch.tensor(x, dtype=torch.float32, device=dev)  # noqa
+    return f(p0), f(p1), torch.tensor(draw, device=dev)
+
+
+# (seed, B, L, E, h, w, t, gran, k per layer): the bench's 128x160 (nxb 2),
+# t = 1 at nxb 1 and 2, nxb 3 and 5, h not a multiple of the band, odd and
+# oversubscribed budgets, and 480x640, whose whole frame (307 KB of uint8)
+# exceeds a block's shared memory, so the unsplit layouts are tiled
+SOA_CASES = [
+    (31, 32, 3, 40, 128, 160, 2, 8, 40),
+    (32, 32, 3, 40, 64, 48, 1, 16, 40),
+    (33, 32, 3, 40, 30, 200, 3, 8, 7),
+    (34, 16, 3, 60, 100, 300, 2, 16, 60),
+    (35, 8, 5, 80, 480, 640, 2, 8, 80),
+    (36, 8, 5, 80, 480, 640, 3, 16, 33),
+    (37, 32, 3, 40, 128, 256, 1, 8, 40),
+]
+
+
+def soa_kernel_vs_plain(kernel, plain, soa, args):
+    """Max |kernel - plain| of one of the older layouts' kernels on one
+    bundle (0 required)."""
+    got = kernel(soa, *args)
+    want = plain(soa, *args)
+    check(got.shape == want.shape and got.dtype == want.dtype,
+          f"{kernel.NAME} kernel output {got.shape} {got.dtype} != "
+          f"{want.shape} {want.dtype}")
+    err = (got.float() - want.float()).abs().max().item()
+    check(err == 0.0, f"{kernel.NAME} kernel differs from its plain version "
+          f"by {err} ({args})")
+    return err
+
+
+def check_soa_kernels(rk, dev):
+    """The frame, env and segment kernels against their plain versions,
+    bit for bit, on SOA_CASES' random bundles: the frame kernel on
+    `compact_soa`, the env kernel on `compact_env_soa` lane-split and (t >=
+    2, no w) unsplit, the segment kernel on `compact_env_seg` split (or one
+    block) and (t >= 2) unsplit. Returns {kernel name: max |error|}."""
+    err = {"frame_soa": 0.0, "env_soa": 0.0, "env_seg": 0.0}
+    for seed, b, nl, e, h, w, t, gran, kl in SOA_CASES:
+        p0, p1, draw = soa_segments(seed, b, nl, e, h, w, dev)
+        nxb = rk._n_xblocks(w)
+        res = (h, w)
+        soa = rk.compact_soa(p0, p1, draw, kl, gran, h, t, w=w)
+        check(int(soa[-1][0, :nl].max()) == 0, "env 0 should be empty")
+        check(int(soa[-1][0, nl:].min()) > 0, "a frame has no live slot")
+        if kl < e:
+            check(int(soa[-1][2].sum()) > 0, "budget not oversubscribed")
+        err["frame_soa"] = max(err["frame_soa"], soa_kernel_vs_plain(
+            rk.frame_soa_kernel, rk.rasterize_compact_soa_plain, soa,
+            (res, t, gran)))
+        for split in (True, False):
+            if not split and t <= 1:
+                continue  # the t=1 clip needs w, which splits the lanes
+            soa = rk.compact_env_soa(p0, p1, draw, kl * nl * nxb, gran, h, t,
+                                     w=w if split else None)
+            err["env_soa"] = max(err["env_soa"], soa_kernel_vs_plain(
+                rk.env_soa_kernel, rk.rasterize_compact_env_soa_plain, soa,
+                (nl, res, t, gran, split)))
+            soa = rk.compact_env_seg(
+                p0[..., 0], p0[..., 1], p1[..., 0], p1[..., 1], draw,
+                kl * nl, gran, h, t, w=w if split else None)
+            check(int(soa[-1][0, 0]) == 0, "env 0 should be empty")
+            err["env_seg"] = max(err["env_seg"], soa_kernel_vs_plain(
+                rk.env_seg_kernel, rk.rasterize_env_seg_plain, soa,
+                (nl, res, t, gran, split and nxb > 1)))
+    print(f"kernels: frame, env and segment kernels equal to their plain "
+          f"versions on {len(SOA_CASES)} random bundles each (t = 1, 2, 3; "
+          "gran 8 and 16; nxb 1, 2, 3, 5; 30x200 to 480x640; split and "
+          "unsplit; oversubscribed)")
+    return err
+
+
+def rasterizer_bench(card, rk, errs):
+    """The port's rasterizer benchmark (tinycarlo_torch.benchmarks.
+    rasterize_bench) at full size: every mode once, its kernels' launch
+    counts from that run, every kernel mode rendering the same masks
+    (equal checksums, nothing dropped); then, on each kernel mode's
+    4096-env bundle, the kernel against its plain version, both timed, and
+    its bound. Returns the `kernels` entries of the frame, env and segment
+    kernels."""
+    import torch
+
+    from tinycarlo_torch.benchmarks import rasterize_bench as rb
+
+    inputs = rb.Inputs("cuda")
+    for k in rb.KERNELS:
+        k.launches = 0
+    results = rb.run(rb.MODES, "cuda", inputs=inputs)
+    launches = {k.NAME: k.launches for k in rb.KERNELS}
+    # each kernel mode renders once an iteration, in the warm-up, the
+    # repeats and its kernel alone; a compaction mode never
+    want = {k.NAME: 0 for k in rb.KERNELS}
+    for mode, kernel in rb.KERNEL_OF.items():
+        want[kernel.NAME] += (rb.REPEATS + 2) * rb.ITERS
+    check(launches == want, f"the benchmark's kernel launches {launches}, "
+          f"not one a render {want}")
+    for mode in rb.MODES:
+        per_iter = results[mode]["launches"]
+        check(per_iter == (1 if mode in rb.KERNEL_OF else 0),
+              f"{mode} launched {per_iter} kernels an iteration")
+    sums = {m: results[m]["checksum"] for m in rb.KERNEL_OF}
+    for mode in rb.KERNEL_OF:
+        check(results[mode]["dropped"] == 0, f"{mode} dropped slots")
+    # the per-layer and the packed projections round float32 differently
+    # (matrix products against elementwise), so only the layouts of one
+    # projection must render the same masks
+    for group in (("full", "env"), ("cur", "seg", "idx")):
+        check(len({sums[m] for m in group}) == 1 and sums[group[0]] > 0,
+              f"the layouts render different masks: checksums {sums}")
+    print(f"rasterizer benchmark: {launches} kernel launches; the masks' "
+          f"checksums {sums}")
+
+    entries = {}
+    res = (rb.H, rb.W)
+    out_bytes = rb.N_ENVS * inputs.n_layers * rb.H * rb.W
+    replaces = {
+        "full": "tinycarlo_tpu/ops/rasterize_pallas.py:357 (_kernel)",
+        "env": "tinycarlo_tpu/ops/rasterize_pallas.py:689 (_kernel_env)",
+        "cur": "tinycarlo_tpu/ops/rasterize_pallas.py:689 (_kernel_env)",
+        "seg": "tinycarlo_tpu/ops/rasterize_pallas.py:1345 "
+               "(_kernel_env_seg)",
+    }
+    plains = {"full": rk.rasterize_compact_soa_plain,
+              "env": rk.rasterize_compact_env_soa_plain,
+              "cur": rk.rasterize_compact_env_soa_plain,
+              "seg": rk.rasterize_env_seg_plain}
+    for mode in ("full", "env", "cur", "seg"):
+        start = inputs.layer[0] if mode in ("full", "env") else inputs.packed[0]
+        soa, _ = rb.bundle(mode, inputs, start, 0)
+        gran = rb.GRAN if mode in ("full", "env") else rb.GRAN_PACKED
+        split = mode in ("cur", "seg")
+        args = ((res, rb.THICK, gran) if mode == "full" else
+                (inputs.n_layers, res, rb.THICK, gran, split))
+        kernel = rb.KERNEL_OF[mode]
+        name = kernel.NAME
+        errs[name] = max(errs[name], soa_kernel_vs_plain(
+            kernel, plains[mode], soa, args))
+        ms = cuda_ms(lambda: kernel(soa, *args), repeats=20)
+        plain_ms = cuda_ms(lambda: plains[mode](soa, *args), repeats=5,
+                           warmup=1)
+        n_bytes, n_ops = soa_bytes_and_ops(rk, mode, soa, res, rb.THICK, gran,
+                                           split, out_bytes)
+        bound_ms, by, t_bytes, t_ops = bound(n_bytes, n_ops, PEAK_F32_PER_S)
+        print(f"{name} kernel ({mode}, gran {gran}{', split' if split else ''})"
+              f" on {card}: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{n_bytes / 1e6:.1f} MB -> {t_bytes:.4f} ms, {n_ops / 1e9:.2f} "
+              f"GOP f32 -> {t_ops:.4f} ms: {by} bind; "
+              f"{results[mode]['median']:.4f} ms/iter with its compaction")
+        if mode == "full":
+            out = kernel(soa, *args)
+            print(f"the benchmark's checksum of one output (an int64 sum of "
+                  f"{out.numel() / 1e6:.1f} MB of uint8): "
+                  f"{cuda_ms(lambda: out.sum(dtype=torch.int64)):.4f} ms")
+        if mode == "cur":
+            continue  # env_soa's entry is its `env` layout's
+        entries[name] = {
+            "name": name,
+            "route": "cuda",
+            "source": f"tinycarlo_torch/ops/csrc/{name}.cu",
+            "replaces": replaces[mode],
+            "launches": launches[name],
+            "max_abs_err": errs[name],
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": by,
+            # no single PyTorch call rasterizes compacted segment stamps
+            # into per-layer masks, so there is no library yardstick
+            "library_ms": None,
+        }
+    return [entries["frame_soa"], entries["env_soa"], entries["env_seg"]]
 
 
 def run_main_path(fenv, vector, stanley_steering, params, n_envs, chunk,
@@ -1155,7 +1413,7 @@ def serving_step_fn(params, act):
 
 
 def serve(card, rank_err, pool):
-    """Phase 6: the bundled combo served on rgb frames through the port's
+    """Phase 7: the bundled combo served on rgb frames through the port's
     evaluate, the protocol's maneuvers in `pool`'s processes. Returns the
     rank kernel's entry of the `kernels` line."""
     from tinycarlo_torch import env as fenv
@@ -1221,7 +1479,7 @@ def serve(card, rank_err, pool):
 
 
 def serve_exact(card, pool):
-    """Phase 7: the bundled combo on the exact stroke's rgb frames (the
+    """Phase 8: the bundled combo on the exact stroke's rgb frames (the
     exact kernel's masks, decoded): policy_parity.py's protocol (its
     maneuvers in `pool`'s processes), 4096 envs, and the card against the
     CPU port."""

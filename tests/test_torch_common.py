@@ -168,6 +168,7 @@ def test_entry_points_default_to_cuda():
     """Entry points default to "cuda" and raise without a GPU instead of
     carrying on on the CPU."""
     from tinycarlo_torch import env as fenv
+    from tinycarlo_torch.benchmarks import rasterize_bench
     from tinycarlo_torch.utils.helper import resolve_device
 
     assert resolve_device("cpu") == torch.device("cpu")
@@ -176,6 +177,8 @@ def test_entry_points_default_to_cuda():
     else:
         with pytest.raises(RuntimeError, match="CUDA"):
             fenv.make_env_params(bench_config())
+        with pytest.raises(RuntimeError, match="CUDA"):
+            rasterize_bench.main(["full"])
 
 
 def _config_sources():

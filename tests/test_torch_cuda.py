@@ -219,3 +219,121 @@ def test_exact_packed_entry_launches_kernel():
                          counts), L, (h, w), 2)
     with pytest.raises(ValueError, match="30"):
         rk.exact_kernel((idx, fields[:-1], counts), L, (h, w), 2)
+
+
+def _soa_segments(seed, b, nl, e, h, w):
+    """Per-layer segments on the card: p0, p1 (b, nl, e, 2), draw
+    (b, nl, e); env 0 draws nothing."""
+    rng = np.random.default_rng(seed)
+    p0 = np.stack([rng.uniform(-40, w + 40, (b, nl, e)),
+                   rng.uniform(-40, h + 40, (b, nl, e))], -1)
+    p1 = p0 + np.stack([rng.uniform(-90, 90, (b, nl, e)),
+                        rng.uniform(-70, 70, (b, nl, e))], -1)
+    draw = rng.random((b, nl, e)) < 0.7
+    draw[0] = False
+    f = lambda x: torch.tensor(x, dtype=torch.float32, device="cuda")  # noqa
+    return f(p0), f(p1), torch.tensor(draw, device="cuda")
+
+
+# (t, h, w, gran, k per layer): the three strokes, both band heights, one
+# to five lane blocks, h not a multiple of the band, an oversubscribed odd
+# budget, and 480x640, whose unsplit frames the kernels tile by 128 lanes
+SOA_CASES = [(1, 64, 48, 8, 40), (2, 30, 200, 16, 7), (3, 100, 300, 8, 40),
+             (2, 480, 640, 16, 40), (2, 128, 160, 8, 128)]
+
+
+def _launched(kernel, soa, args, plain):
+    before = kernel.launches
+    got = kernel(soa, *args)
+    assert kernel.launches == before + 1
+    want = plain(soa, *args)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.uint8 and got.shape == want.shape
+    assert torch.equal(got, want)
+    assert want.sum() > 0 and not want[0].any()
+
+
+@pytest.mark.parametrize("t,h,w,gran,kl", SOA_CASES)
+def test_frame_soa_kernel_matches_plain(t, h, w, gran, kl):
+    """The frame kernel (compact_soa's bundle) bit-equal to its plain
+    version."""
+    _require_cuda()
+    p0, p1, draw = _soa_segments(t * 13 + h, 32, 3, 40, h, w)
+    soa = rk.compact_soa(p0, p1, draw, kl, gran, h, t, w=w)
+    _launched(rk.frame_soa_kernel, soa, ((h, w), t, gran),
+              rk.rasterize_compact_soa_plain)
+
+
+@pytest.mark.parametrize("split", [True, False])
+@pytest.mark.parametrize("t,h,w,gran,kl", SOA_CASES)
+def test_env_soa_kernel_matches_plain(t, h, w, gran, kl, split):
+    """The env kernel (compact_env_soa's bundle, lane-split or, without w,
+    unsplit) bit-equal to its plain version."""
+    _require_cuda()
+    split = split or t <= 1  # the t=1 clip needs w, which splits the lanes
+    p0, p1, draw = _soa_segments(t * 17 + h, 32, 3, 40, h, w)
+    soa = rk.compact_env_soa(p0, p1, draw, kl * 3 * rk._n_xblocks(w), gran,
+                             h, t, w=w if split else None)
+    _launched(rk.env_soa_kernel, soa, (3, (h, w), t, gran, split),
+              rk.rasterize_compact_env_soa_plain)
+
+
+@pytest.mark.parametrize("split", [True, False])
+@pytest.mark.parametrize("t,h,w,gran,kl", SOA_CASES)
+def test_env_seg_kernel_matches_plain(t, h, w, gran, kl, split):
+    """The segment kernel (compact_env_seg's bundle) bit-equal to its plain
+    version."""
+    _require_cuda()
+    split = split or t <= 1
+    p0, p1, draw = _soa_segments(t * 19 + h, 32, 3, 40, h, w)
+    soa = rk.compact_env_seg(p0[..., 0], p0[..., 1], p1[..., 0], p1[..., 1],
+                             draw, kl * 3, gran, h, t, w=w if split else None)
+    _launched(rk.env_seg_kernel, soa,
+              (3, (h, w), t, gran, split and w > 128),
+              rk.rasterize_env_seg_plain)
+
+
+def test_soa_kernels_check_their_inputs():
+    """The wrappers raise on what the kernels do not take, before
+    launching: a band height the kernels are not compiled for, a wrong
+    dtype."""
+    _require_cuda()
+    p0, p1, draw = _soa_segments(3, 8, 3, 40, 64, 160)
+    soa = rk.compact_soa(p0, p1, draw, 40, 8, 64, 2)
+    before = rk.frame_soa_kernel.launches
+    with pytest.raises(ValueError, match="gran"):
+        rk.frame_soa_kernel(soa, (64, 160), 2, 4)
+    with pytest.raises(ValueError, match="float32"):
+        rk.frame_soa_kernel((soa[0].double(),) + soa[1:], (64, 160), 2, 8)
+    assert rk.frame_soa_kernel.launches == before
+
+
+def test_soa_kernels_keep_a_mismatched_gran_in_the_frame():
+    """A bundle compacted at gran 8 and rendered at gran 16 (the bundle
+    does not carry its band height) has windows that reach past the
+    strip: each kernel writes no row outside it, so the launch succeeds,
+    the masks stay 0/255, and the next correct render still equals its
+    plain version."""
+    _require_cuda()
+    h, w, t = 100, 160, 2
+    p0, p1, draw = _soa_segments(5, 16, 3, 40, h, w)
+    u0, v0, u1, v1 = p0[..., 0], p0[..., 1], p1[..., 0], p1[..., 1]
+    cases = [
+        (rk.frame_soa_kernel, rk.rasterize_compact_soa_plain,
+         lambda g: rk.compact_soa(p0, p1, draw, 40, g, h, t),
+         lambda g: ((h, w), t, g)),
+        (rk.env_soa_kernel, rk.rasterize_compact_env_soa_plain,
+         lambda g: rk.compact_env_soa(p0, p1, draw, 120, g, h, t),
+         lambda g: (3, (h, w), t, g, False)),
+        (rk.env_seg_kernel, rk.rasterize_env_seg_plain,
+         lambda g: rk.compact_env_seg(u0, v0, u1, v1, draw, 120, g, h, t,
+                                      w=w),
+         lambda g: (3, (h, w), t, g, True)),
+    ]
+    for kernel, plain, compact, args in cases:
+        out = kernel(compact(8), *args(16))
+        torch.cuda.synchronize()
+        assert out.shape == (16, 3, h, w)
+        assert bool(((out == 0) | (out == 255)).all())
+        _launched(kernel, compact(16), args(16), plain)
+

@@ -170,6 +170,15 @@ def test_binding_matches_c_signature():
     assert c_argtypes("masks.cu", "tc_masks_launch") == rk.MasksKernel.ARGTYPES
 
 
+@pytest.mark.parametrize("kernel", [rk.FrameSoaKernel, rk.EnvSoaKernel,
+                                    rk.EnvSegKernel])
+def test_soa_binding_matches_c_signature(kernel):
+    """The same for the frame, env and segment kernels: each wrapper's
+    ctypes argument types follow its C launch function's parameter list in
+    ops/csrc/<NAME>.cu."""
+    assert c_argtypes(f"{kernel.NAME}.cu", kernel.SYMBOL) == kernel.ARGTYPES
+
+
 def test_wrapper_dispatch_and_counter():
     """On CPU tensors the wrapper takes the plain version and counts no
     launch; the exact stroke at t >= 2 routes to the exact compaction and

@@ -230,3 +230,92 @@ def project_layers_batch_soa(
     vis1 = in_frame(u1, v1) & front1 & in1
     draw = edge_mask & (vis0 | vis1)
     return u0, v0, u1, v1, draw
+
+
+def _point_on_line_at_z(p_keep, p_move, target_z):
+    """Move p_move along the segment (p_keep, p_move) to depth target_z
+    (reference camera.py:112-122, arguments in its keep/move order)."""
+    direction = p_keep - p_move
+    dz = direction[..., 2]
+    t = (target_z - p_move[..., 2]) / torch.where(dz == 0, 1.0, dz)
+    return p_move + t[..., None] * direction
+
+
+def project_layer(
+    nodes: torch.Tensor,  # (..., N, 2) map nodes
+    edges: torch.Tensor,  # (..., E, 2) int32
+    edge_mask: torch.Tensor,  # (..., E)
+    camera_pose: torch.Tensor,  # (..., 3, 4) E @ world->car
+    K: torch.Tensor,  # (3, 3)
+    resolution: Tuple[int, int],
+    max_range: Optional[float],
+):
+    """Project laneline layers into image-space segments in point form, as
+    tinycarlo_tpu's `project_layer` (camera.py:311-370) does one layer of
+    one env; the leading axes of the arguments broadcast (nodes (L, N, 2)
+    with a pose (B, 1, 3, 4) projects every layer of B envs).
+
+    Returns (p0, p1, draw): (..., E, 2) pixel endpoints and an (..., E)
+    draw mask. Same steps as `project_layers_batch_soa`, in the JAX
+    function's form: nodes lifted to z = 0 and transformed by the pose as
+    one matrix product, each edge's endpoints gathered from them, per-edge
+    near-plane (z = -1e-7) and range (z = -max_range) clips, the
+    projection through K as a matrix product and a true divide; an
+    endpoint is visible iff in front, in range and strictly inside the
+    frame, an edge drawn iff either endpoint is."""
+    h, w = resolution
+    pts = torch.cat(
+        [nodes, torch.zeros_like(nodes[..., :1]),
+         torch.ones_like(nodes[..., :1])], dim=-1,
+    )
+    cam = pts @ camera_pose.transpose(-1, -2)  # (..., N, 3)
+    lead = cam.shape[:-2]
+    e = edges.shape[-2]
+
+    def endpoint(i):
+        sel = edges[..., i].long().expand(*lead, e)
+        return torch.gather(cam, -2, sel[..., None].expand(*lead, e, 3))
+
+    p0, p1 = endpoint(0), endpoint(1)
+    front0 = p0[..., 2] < 0
+    front1 = p1[..., 2] < 0
+    clip0 = (~front0) & front1
+    clip1 = front0 & (~front1)
+    p0 = torch.where(clip0[..., None], _point_on_line_at_z(p1, p0, NEAR_EPS),
+                     p0)
+    p1 = torch.where(clip1[..., None], _point_on_line_at_z(p0, p1, NEAR_EPS),
+                     p1)
+    front0 = front0 | clip0
+    front1 = front1 | clip1
+
+    if max_range is not None:
+        zmax = -max_range
+        in0 = p0[..., 2] > zmax
+        in1 = p1[..., 2] > zmax
+        rclip0 = (~in0) & in1
+        rclip1 = in0 & (~in1)
+        p0 = torch.where(rclip0[..., None], _point_on_line_at_z(p1, p0, zmax),
+                         p0)
+        p1 = torch.where(rclip1[..., None], _point_on_line_at_z(p0, p1, zmax),
+                         p1)
+        in0 = in0 | rclip0
+        in1 = in1 | rclip1
+    else:
+        in0 = torch.ones_like(front0)
+        in1 = torch.ones_like(front1)
+
+    def proj(p):
+        uvw = p @ K.T
+        safe_w = torch.where(uvw[..., 2] == 0, 1.0, uvw[..., 2])
+        return uvw[..., :2] / safe_w[..., None]
+
+    uv0, uv1 = proj(p0), proj(p1)
+
+    def in_frame(uv):
+        return ((uv[..., 0] > 0) & (uv[..., 0] < w) & (uv[..., 1] > 0)
+                & (uv[..., 1] < h))
+
+    vis0 = in_frame(uv0) & front0 & in0
+    vis1 = in_frame(uv1) & front1 & in1
+    draw = edge_mask & (vis0 | vis1)
+    return uv0, uv1, draw

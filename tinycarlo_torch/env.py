@@ -120,6 +120,13 @@ def _project_packed_batch_soa(params: EnvParams, states: EnvState):
     return u0[:, 0], v0[:, 0], u1[:, 0], v1[:, 0], draw[:, 0]
 
 
+def _project_packed_batch(params: EnvParams, states: EnvState):
+    """Stacked-point view of `_project_packed_batch_soa`: (B, Ep, 2) x2
+    endpoints + (B, Ep) draw mask (tinycarlo_tpu/env.py:213-221)."""
+    u0, v0, u1, v1, draw = _project_packed_batch_soa(params, states)
+    return torch.stack([u0, v0], dim=-1), torch.stack([u1, v1], dim=-1), draw
+
+
 def check_segment_overflow(params: EnvParams, states: EnvState) -> torch.Tensor:
     """Per-env count of rasterizer slot copies dropped by the
     `CameraConfig.max_visible_segments` budget at the current states. The

@@ -1,7 +1,10 @@
-// stamp.cuh -- what the masks, rank and exact kernels share: the frame
-// geometry, the band-word decode, the window/tail walk, the list of a
-// frame's slots, the frame store, and the fast stroke's bundle and
-// `window_hit` stamp. One copy, so the kernels cannot drift apart.
+// stamp.cuh -- what the port's kernels share: the frame geometry, the
+// band-word decode, the window/tail walk, the list of a frame's slots, the
+// frame store, and the fast stroke's bundle and `window_hit` stamp. One
+// copy, so the kernels cannot drift apart. masks.cu, rank.cu and exact.cu
+// read the production bundles at 16-row bands; frame_soa.cu, env_soa.cu
+// and env_seg.cu the older SoA bundles at 8- or 16-row bands, one block
+// per 128-lane tile of a frame (`Tile`, `stamp_tile` below).
 //
 // Bundles (ops/rasterize_kernels.py). Both compactions give counts (4+L, B)
 // int32 rows [live, one-band, short, dropped, per-layer...], an idx (B, kp)
@@ -27,6 +30,7 @@
 #pragma once
 
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace tc {
@@ -41,20 +45,21 @@ struct Geometry {
   int B, L, h, w, hp, win, nxb, wb, kp, le, n_bands;
 };
 
-// As rasterize_kernels._frame_geometry: 16-row bands, a two-band window,
-// and 128-lane blocks when w exceeds one block.
+// As rasterize_kernels._frame_geometry: `gran`-row bands (16 unless
+// given), a two-band window, and, when `split`, 128-lane blocks when w
+// exceeds one block.
 inline void set_geometry(Geometry& g, int B, int L, int h, int w, int kp,
-                         int le) {
+                         int le, int gran = kGran, bool split = true) {
   g.B = B;
   g.L = L;
   g.h = h;
   g.w = w;
   g.kp = kp;
   g.le = le;
-  g.n_bands = (h + kGran - 1) / kGran;
-  g.hp = g.n_bands * kGran;
-  g.win = g.hp < 2 * kGran ? g.hp : 2 * kGran;
-  g.nxb = w > kXB ? (w + kXB - 1) / kXB : 1;
+  g.n_bands = (h + gran - 1) / gran;
+  g.hp = g.n_bands * gran;
+  g.win = g.hp < 2 * gran ? g.hp : 2 * gran;
+  g.nxb = split && w > kXB ? (w + kXB - 1) / kXB : 1;
   g.wb = g.nxb > 1 ? kXB : w;
 }
 
@@ -102,9 +107,11 @@ __device__ __forceinline__ void walk_window(const Geometry& g, int word,
   }
 }
 
+// `p` carries the stroke: bres, lat2, cap2 (a Params).
+template <typename Stroke>
 __device__ __forceinline__ bool window_hit(float apx, float apy, float abx,
                                            float aby, float inv,
-                                           const Params& p) {
+                                           const Stroke& p) {
   if (p.bres) {
     float ady = fabsf(aby);
     float sy = aby >= 0.f ? 1.f : -1.f;
@@ -202,12 +209,13 @@ struct RawU8 {
   }
 };
 
-// Write `cols` lanes of rows [0, h) of the strip (zeros when strip is
-// null) to dst, whose rows are `w` elements apart, in 4-wide stores when
-// `vec`.
+// Write `cols` lanes of rows [0, h) of the strip, whose rows are `stride`
+// bytes apart (zeros when strip is null), to dst, whose rows are `w`
+// elements apart, in 4-wide stores when `vec`.
 template <typename Conv>
-__device__ void store_strip(typename Conv::T* dst, const uint8_t* strip,
-                            const Geometry& g, int cols, bool vec) {
+__device__ void store_rows(typename Conv::T* dst, const uint8_t* strip,
+                           int stride, const Geometry& g, int cols,
+                           bool vec) {
   if (vec) {
     const int c4 = cols / 4;
     for (int i = threadIdx.x; i < g.h * c4; i += blockDim.x) {
@@ -215,7 +223,7 @@ __device__ void store_strip(typename Conv::T* dst, const uint8_t* strip,
       const int x = (i - r * c4) * 4;
       typename Conv::V v = Conv::four(0, 0, 0, 0);
       if (strip) {
-        const uint8_t* s = strip + r * g.wb + x;
+        const uint8_t* s = strip + r * stride + x;
         v = Conv::four(s[0], s[1], s[2], s[3]);
       }
       *reinterpret_cast<typename Conv::V*>(dst + (size_t)r * g.w + x) = v;
@@ -225,8 +233,15 @@ __device__ void store_strip(typename Conv::T* dst, const uint8_t* strip,
   for (int i = threadIdx.x; i < g.h * cols; i += blockDim.x) {
     const int r = i / cols;
     const int x = i - r * cols;
-    dst[(size_t)r * g.w + x] = Conv::one(strip ? strip[r * g.wb + x] : 0);
+    dst[(size_t)r * g.w + x] = Conv::one(strip ? strip[r * stride + x] : 0);
   }
+}
+
+// store_rows of a [hp][wb] strip.
+template <typename Conv>
+__device__ void store_strip(typename Conv::T* dst, const uint8_t* strip,
+                            const Geometry& g, int cols, bool vec) {
+  store_rows<Conv>(dst, strip, g.wb, g, cols, vec);
 }
 
 // One thread block's frame of a masks output (B, L, h, w), the block
@@ -276,6 +291,160 @@ inline cudaError_t strip_smem(const Geometry& g, int lists, K kernel,
   *total = *strip_bytes + lists * g.kp * (int)sizeof(int);
   return cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, *total);
+}
+
+// ---- The older SoA bundles: one block per 128-lane tile of a frame ----
+//
+// frame_soa.cu, env_soa.cu and env_seg.cu keep a tile of a frame in
+// shared memory, at most 128 lanes wide, so that any frame fits (a whole
+// 480x640 frame is 307 KB of uint8, more than a block has): block
+// (env, l, T) owns the output lanes [T*128, min(w, T*128 + 128)) of layer
+// l, T < ceil(w/128). In the lane-split layout (nxb > 1) a tile is lane
+// block xb = T of stacked frame l*nxb + xb, whose slots carry block-local
+// lanes; unsplit (nxb = 1) it is lanes [T*128, ...) of stacked frame l,
+// whose slots carry frame lanes.
+struct Tile {
+  int env, l;
+  int xb;     // the tile's lane block (0 unsplit)
+  int frame;  // its stacked frame in the slots' band words: l*nxb + xb
+  int xo;     // its first lane in the slots' lane coordinates
+  int x0;     // its first lane in the output frame
+  int cols;   // its lanes
+  int tw;     // the strip's row stride, min(w, 128)
+};
+
+__host__ __device__ inline int n_tiles(int w) { return (w + kXB - 1) / kXB; }
+
+// The tile of block blockIdx.x = (env*L + l)*n_tiles(w) + T.
+__device__ __forceinline__ Tile block_tile(const Geometry& g) {
+  const int nt = n_tiles(g.w);
+  const int f = blockIdx.x / nt;  // env*L + l
+  const int T = blockIdx.x - f * nt;
+  Tile t;
+  t.env = f / g.L;
+  t.l = f - t.env * g.L;
+  t.xb = g.nxb > 1 ? T : 0;
+  t.frame = t.l * g.nxb + t.xb;
+  t.xo = g.nxb > 1 ? 0 : T * kXB;
+  t.x0 = T * kXB;
+  t.cols = min(kXB, g.w - t.x0);
+  t.tw = min(g.w, kXB);
+  return t;
+}
+
+// Whether a slot whose segment spans the lanes [ax, ax + abx] (slot
+// coordinates) can light a lane of the tile: that range widened by `pad`,
+// the stroke's reach plus a margin, meets the tile's. A pixel farther
+// than the reach from the range is never lit (|dx| alone exceeds it), so
+// skipping the slot changes no output.
+__device__ __forceinline__ bool touches(float ax, float abx, float pad,
+                                        const Tile& t) {
+  const float bx = ax + abx;
+  return fmaxf(ax, bx) + pad >= (float)t.xo &&
+         fminf(ax, bx) - pad <= (float)(t.xo + t.cols - 1);
+}
+
+// Stamp one fast-stroke slot into a tile's strip with all threads: the
+// window at row band `rowband` of the slot's stacked strip and, when nb >
+// win/Gran, the tail bands through band nb of the window, over the
+// tile's lanes; row rr from the window start lands on strip row b0*Gran +
+// rr, b0 the band within the frame. With `Absolute` the pixel row is
+// taken as `_kernel` and `_kernel_env` take it, apy = (rr + y0) - ay;
+// otherwise window-relative, a tail band in its own Gran-row window, as
+// `_tier_loops_seg` (and `stamp_copy`). Both are exact (integer-valued
+// floats below 2^24). Rows outside the strip's [0, hp) are never written:
+// a compaction's own bands always fit, but the bundle does not carry its
+// band height, and one compacted at another gran would reach past the
+// strip. No barrier: stores of 1 are idempotent.
+template <int Gran, bool Absolute, typename Stroke>
+__device__ __forceinline__ void stamp_tile(const Geometry& g,
+                                           const Stroke& s, const Tile& t,
+                                           float ax, float ay, float abx,
+                                           float aby, float inv, int rowband,
+                                           int nb, int b0, uint8_t* strip) {
+  const int rows = b0 < 0 ? 0
+                          : min(max(nb, g.win / Gran) * Gran,
+                                g.hp - b0 * Gran);
+  const int y0 = rowband * Gran;
+  uint8_t* base = strip + b0 * Gran * t.tw;
+  for (int i = threadIdx.x; i < rows * t.cols; i += blockDim.x) {
+    const int rr = i / t.cols;
+    const int x = i - rr * t.cols;
+    float apy;
+    if (Absolute) {
+      apy = ((float)rr + (float)y0) - ay;
+    } else if (rr < g.win) {
+      apy = (float)rr - (ay - (float)y0);
+    } else {
+      const int band_row = (rr / Gran) * Gran;
+      apy = (float)(rr - band_row) - (ay - (float)(y0 + band_row));
+    }
+    if (window_hit((float)(t.xo + x) - ax, apy, abx, aby, inv, s)) {
+      base[rr * t.tw + x] = 1;
+    }
+  }
+}
+
+// One block's tile of a (B, L, h, w) uint8 0/255 masks output. Zeros
+// unless `live` and n > 0; otherwise the block zeroes its [hp][tw] strip
+// (dynamic shared memory `smem`, the slot list after its `strip_bytes`),
+// lists the slots s < n for which pick(s) holds, stamps each listed slot
+// with stamp(s, strip), and writes rows [0, h) of its lanes out.
+template <typename Pick, typename Stamp>
+__device__ void soa_tile(const Geometry& g, const Tile& t, bool live, int n,
+                         uint8_t* out, uint8_t* smem, int strip_bytes,
+                         Pick pick, Stamp stamp) {
+  __shared__ int n_list;
+  uint8_t* dst = out + ((size_t)t.env * g.L + t.l) * g.h * g.w + t.x0;
+  const bool vec = (g.w % 4 == 0) && (t.cols % 4 == 0);
+  if (!live || n <= 0) {
+    store_rows<MaskU8>(dst, nullptr, t.tw, g, t.cols, vec);
+    return;
+  }
+  uint8_t* strip = smem;
+  int* list = reinterpret_cast<int*>(smem + strip_bytes);
+  for (int i = threadIdx.x; i < g.hp * t.tw; i += blockDim.x) strip[i] = 0;
+  if (threadIdx.x == 0) n_list = 0;
+  __syncthreads();
+  for (int s = threadIdx.x; s < n; s += blockDim.x) {
+    if (pick(s)) list[atomicAdd(&n_list, 1)] = s;
+  }
+  __syncthreads();
+  const int m = n_list;
+  for (int j = 0; j < m; ++j) stamp(list[j], strip);
+  __syncthreads();
+  store_rows<MaskU8>(dst, strip, t.tw, g, t.cols, vec);
+}
+
+// Dynamic shared memory of a tile's [hp][min(w, 128)] strip and a
+// `list`-entry int list: sets *strip_bytes (the strip rounded to 16) and
+// *total, and allows `kernel` that much.
+template <typename K>
+inline cudaError_t tile_smem(const Geometry& g, int list, K kernel,
+                            int* strip_bytes, int* total) {
+  const int tw = g.w < kXB ? g.w : kXB;
+  *strip_bytes = (g.hp * tw + 15) / 16 * 16;
+  *total = *strip_bytes + list * (int)sizeof(int);
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, *total);
+}
+
+// The launch of a tile kernel kernel(p, out, strip_bytes, pad) over
+// B*L*n_tiles(w) blocks of `threads`, with a `list`-entry slot list; pad is
+// the stroke's reach plus two lanes (`touches`). Returns the CUDA error.
+template <typename K>
+inline int launch_tiles(const Params& p, K kernel, uint8_t* out, int list,
+                        int threads, cudaStream_t stream) {
+  int strip_bytes, smem;
+  cudaError_t err = tile_smem(p, list, kernel, &strip_bytes, &smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long blocks = (long long)p.B * p.L * n_tiles(p.w);
+  const float pad = sqrtf(p.lat2 > p.cap2 ? p.lat2 : p.cap2) + 2.f;
+  if (blocks > 0) {
+    kernel<<<(unsigned)blocks, threads, smem, stream>>>(p, out, strip_bytes,
+                                                        pad);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace tc

@@ -17,11 +17,24 @@ and touched 128-lane block) a payload and a packed band word, plus a
   (`stroke="exact"` at t >= 2). The exact kernel (ops/csrc/exact.cu)
   stamps it into (B, L, H, W) class masks, replacing `_kernel_env_exact`.
 
+Three older layouts that production replaced, which the rasterizer
+benchmarks (tinycarlo_torch.benchmarks.rasterize_bench) still time, each
+at a band granularity `gran` of 8 or 16 rows:
+- `compact_soa`: slots routed per (env, layer) frame, stamped by the
+  frame kernel (ops/csrc/frame_soa.cu) in place of `_kernel`;
+- `compact_env_soa`: slots routed per env, layer and lane block folded
+  into the rows, stamped by the env kernel (ops/csrc/env_soa.cu) in place
+  of `_kernel_env`;
+- `compact_env_seg`: one slot per segment, its touched lane blocks packed
+  into the band word, stamped by the segment kernel (ops/csrc/env_seg.cu)
+  in place of `_kernel_env_seg`.
+
 Each wrapper's `__call__` dispatches on the bundle's device: CUDA tensors
 launch the kernel (or raise), CPU tensors take the plain PyTorch version
 (`rasterize_masks_env_plain`, `rasterize_rank_env_plain`,
-`rasterize_masks_exact_env_plain`), which computes the same function and
-is the kernel's reference on the card.
+`rasterize_masks_exact_env_plain`, `rasterize_compact_soa_plain`,
+`rasterize_compact_env_soa_plain`, `rasterize_env_seg_plain`), which
+computes the same function and is the kernel's reference on the card.
 """
 from __future__ import annotations
 
@@ -62,12 +75,27 @@ def _n_xblocks(w: int) -> int:
     return -(-w // _XB) if w > _XB else 1
 
 
-def _window_rows(h: int) -> Tuple[int, int, int]:
-    """(n_bands, padded height, window rows) of a frame: the window spans
-    two bands (clamped to the padded frame)."""
-    n_bands = -(-h // _GRAN)
-    hp = n_bands * _GRAN
-    return n_bands, hp, min(2 * _GRAN, hp)
+def _window_rows(h: int, gran: int = _GRAN) -> Tuple[int, int, int]:
+    """(n_bands, padded height, window rows) of a frame cut into `gran`-row
+    bands: the window spans two bands (clamped to the padded frame)."""
+    n_bands = -(-h // gran)
+    hp = n_bands * gran
+    return n_bands, hp, min(2 * gran, hp)
+
+
+def _bands(ylo, yhi, draw, h: int, gran: int = _GRAN):
+    """(nb, b0c) of segments whose stroke spans the rows [ylo, yhi]: nb,
+    the count of `gran`-row bands from the first through the last it
+    touches (0 unless drawn and meeting the frame's rows), and b0c, the
+    first band clamped so that a window starting there stays in the padded
+    frame. The clamp moves b0 only when nb fits the window, so a window at
+    b0c still covers every band through the last."""
+    n_bands, hp, win = _window_rows(h, gran)
+    b0 = torch.clamp(torch.floor(ylo / gran), 0.0, n_bands - 1.0).to(torch.int32)
+    b1 = torch.clamp(torch.floor(yhi / gran), 0.0, n_bands - 1.0).to(torch.int32)
+    valid = (yhi >= 0.0) & (ylo <= h - 1.0) & draw
+    nb = torch.where(valid, b1 + 1 - b0, 0)
+    return nb, torch.clamp_max(b0, (hp - win) // gran)
 
 
 def _stroke_params(thickness: int):
@@ -151,13 +179,8 @@ def compact_env_idx_soa(
     assert n_layers * nxb * n_bands < (1 << 24) // _NB_PACK, (
         "stacked frames too tall for band word"
     )
-    ylo = torch.minimum(ay0, by0) - rf
-    yhi = torch.maximum(ay0, by0) + rf
-    b0 = torch.clamp(torch.floor(ylo / _GRAN), 0.0, n_bands - 1.0).to(torch.int32)
-    b1 = torch.clamp(torch.floor(yhi / _GRAN), 0.0, n_bands - 1.0).to(torch.int32)
-    valid = (yhi >= 0.0) & (ylo <= h - 1.0) & draw
-    nb = torch.where(valid, b1 + 1 - b0, 0)
-    b0c = torch.clamp_max(b0, (hp - win) // _GRAN)
+    nb, b0c = _bands(torch.minimum(ay0, by0) - rf,
+                     torch.maximum(ay0, by0) + rf, draw, h)
     lay = edge_layer.to(torch.int32)[None, :].expand(bsz, e)
 
     if nxb > 1:
@@ -197,13 +220,40 @@ def compact_env_idx_soa(
     return idx, ax0, ay0, abx, aby, inv, bw, counts
 
 
-def _route_slots(nb, k, win, lay, nxb, n_layers, layer_bounds):
-    """The slot routing of both compactions (rasterize_pallas.py:1058-1108,
-    :2744-2793) from the (B, LE) band counts `nb` of the copies: a
-    `torch.topk` (sorted) over a key that puts eligible short copies first,
-    then talls, each in index order, yields the (B, k) slot->copy index,
-    padded with 7 copies of its last column. The keys are distinct
-    integers, so topk selects and orders the same slots as `lax.top_k`.
+def _slot_order(nb, k, win, gran):
+    """The slot order of every compaction (rasterize_pallas.py:300-335,
+    :636-672, :1058-1070, :1217-1240) from the (..., E) band counts `nb`:
+    a sorted `torch.topk` (k < E) or a stable argsort (k >= E, all E) over
+    a key that puts eligible short copies (0 < nb <= win/gran) first, then
+    the talls, then the rest, each in index order. The keys are distinct
+    integers, so the selection and order are `lax.top_k`'s.
+
+    Returns (order, n_all, n_short, n_drop): the copies of the slots, and
+    per row the live slots, the short ones among them and the eligible
+    copies that found no slot, int32."""
+    le = nb.shape[-1]
+    draw2 = nb > 0
+    tall = nb > win // gran
+    iota = torch.arange(le, dtype=torch.int32, device=nb.device)
+    key = torch.where(
+        draw2, torch.where(tall, le - iota, 2 * le - iota), -iota
+    )
+    n_elig = draw2.sum(dim=-1, dtype=torch.int32)
+    n_all = torch.clamp_max(n_elig, k)
+    n_short = torch.clamp_max((draw2 & ~tall).sum(dim=-1, dtype=torch.int32), k)
+    if k < le:
+        order = torch.topk(key, k, dim=-1, sorted=True).indices
+    else:
+        order = torch.argsort(-key, dim=-1, stable=True)
+    return order, n_all, n_short, n_elig - n_all
+
+
+def _route_slots(nb, k, win, lay, nxb, n_layers, layer_bounds,
+                 gran: int = _GRAN):
+    """The slot routing of the index-indirect compactions
+    (rasterize_pallas.py:1058-1108, :1217-1272, :2744-2793) from the
+    (B, LE) band counts `nb` of the copies: `_slot_order`'s (B, k)
+    slot->copy index, padded with 7 copies of its last column.
 
     Returns (idx, counts): counts is (4 + n_layers, B) int32, rows [live,
     one-band (0: the one-band tier is off), short, dropped, per-layer
@@ -213,21 +263,8 @@ def _route_slots(nb, k, win, lay, nxb, n_layers, layer_bounds):
     bsz, le = nb.shape
     dev = nb.device
     draw2 = nb > 0
-    tall = nb > win // _GRAN
-    iota = torch.arange(le, dtype=torch.int32, device=dev).expand(bsz, le)
-    key = torch.where(
-        draw2, torch.where(tall, le - iota, 2 * le - iota), -iota
-    )
-    n_elig = draw2.sum(dim=-1, dtype=torch.int32)
-    n_all = torch.clamp_max(n_elig, k)
+    idx, n_all, n_short, n_drop = _slot_order(nb, k, win, gran)
     n_one = torch.zeros_like(n_all)
-    n_short = torch.clamp_max((draw2 & ~tall).sum(dim=-1, dtype=torch.int32), k)
-    n_drop = n_elig - n_all
-
-    if k < le:
-        idx = torch.topk(key, k, dim=-1, sorted=True).indices
-    else:
-        idx = torch.argsort(-key, dim=-1, stable=True)
     idx = idx.to(torch.int32)
     # 7 pad slots (duplicates of the last), as the TPU bundle carries for
     # its unrolled loops' over-run
@@ -341,13 +378,9 @@ def compact_env_exact_soa(
     assert w + _XBIAS < (1 << 16), (
         f"frame width {w} overflows the packed 16-bit fields"
     )
-    yloi = torch.minimum(p0y, p1y).to(torch.float32) - rf
-    yhii = torch.maximum(p0y, p1y).to(torch.float32) + rf
-    b0 = torch.clamp(torch.floor(yloi / _GRAN), 0.0, n_bands - 1.0).to(torch.int32)
-    b1 = torch.clamp(torch.floor(yhii / _GRAN), 0.0, n_bands - 1.0).to(torch.int32)
-    valid = (yhii >= 0.0) & (yloi <= h - 1.0) & draw & P["accept"]
-    nb = torch.where(valid, b1 + 1 - b0, 0)
-    b0c = torch.clamp_max(b0, (hp - win) // _GRAN)
+    nb, b0c = _bands(torch.minimum(p0y, p1y).to(torch.float32) - rf,
+                     torch.maximum(p0y, p1y).to(torch.float32) + rf,
+                     draw & P["accept"], h)
     lay = edge_layer.to(torch.int32)[None, :].expand(bsz, e)
 
     if nxb > 1:
@@ -417,6 +450,234 @@ def compact_env_exact_soa(
     return idx, fields, counts
 
 
+def _route_soa(nb, k, win, gran, ax0, ay0, bx0, by0, bw, thickness):
+    """Direct slot routing of `compact_soa` and `compact_env_soa`: the
+    endpoints and band words of `_slot_order`'s slots (the JAX package
+    routes them by a one-hot matmul, which turns -0.0 into +0.0: compare
+    with `==`), then each slot's direction and stamp reciprocal, the slot
+    axis padded to even with dead slots (nb = 0).
+
+    Returns (ax, ay, abx, aby, inv, bw, n_all, n_short, n_drop)."""
+    order, n_all, n_short, n_drop = _slot_order(nb, k, win, gran)
+    ax, ay, bx, by, bw = (torch.gather(x, -1, order)
+                          for x in (ax0, ay0, bx0, by0, bw))
+    abx, aby = bx - ax, by - ay
+    inv = _inv_for(abx, aby, thickness)
+    slots = [ax, ay, abx, aby, inv, bw.to(torch.int32)]
+    if ax.shape[-1] % 2:
+        # the TPU loops stamp short slots in pairs, so they may run one
+        # slot past an odd count; the pad slot draws nothing
+        slots = [torch.nn.functional.pad(x, (0, 1)) for x in slots]
+    return (*slots, n_all, n_short, n_drop)
+
+
+def compact_soa(
+    p0: torch.Tensor,  # (B, L, E, 2) float pixel coords
+    p1: torch.Tensor,
+    draw: torch.Tensor,  # (B, L, E) bool
+    k: int,
+    gran: int,
+    h: int,
+    thickness: int,
+    w: Optional[int] = None,
+):
+    """The per-frame bundle of tinycarlo_tpu's `compact_soa`
+    (rasterize_pallas.py:231-354), equal to it element for element: the
+    drawn segments of each (env, layer) frame routed into k slots (all E
+    when k >= E), short ones first. `w` is required at thickness 1 (the
+    cv2 clip).
+
+    Returns (ax, ay, abx, aby, inv, bw, counts): per slot (B, L, k')
+    float32 integer endpoint, direction and stamp reciprocal and an int32
+    band word bw = b0c*512 + nb (k' = min(k, E) rounded up to even), and
+    counts (3, B*L) int32, rows [live, short, dropped]."""
+    a, b = _int_endpoints(p0, p1, torch.float32)
+    ax0, ay0, bx0, by0 = a[..., 0], a[..., 1], b[..., 0], b[..., 1]
+    if thickness <= 1:
+        assert w is not None, "thickness-1 compaction needs the frame width"
+        ax0, ay0, bx0, by0, draw = _clip_normalize_t1(
+            w, h, ax0, ay0, bx0, by0, draw
+        )
+    rf = float(_stroke_radius_sq(thickness)) ** 0.5
+    n_bands, hp, win = _window_rows(h, gran)
+    assert n_bands < _NB_PACK, "frame too tall for the packed band word"
+    nb, b0c = _bands(torch.minimum(ay0, by0) - rf,
+                     torch.maximum(ay0, by0) + rf, draw, h, gran)
+    *slots, n_all, n_short, n_drop = _route_soa(
+        nb, k, win, gran, ax0, ay0, bx0, by0, b0c * _NB_PACK + nb, thickness
+    )
+    counts = torch.stack([n_all.reshape(-1), n_short.reshape(-1),
+                          n_drop.reshape(-1)])
+    return (*slots, counts)
+
+
+def compact_env_soa(
+    p0: torch.Tensor,  # (B, L, E, 2) float pixel coords
+    p1: torch.Tensor,
+    draw: torch.Tensor,  # (B, L, E) bool
+    k: int,
+    gran: int,
+    h: int,
+    thickness: int,
+    edge_layer: Optional[torch.Tensor] = None,  # (E,) int32
+    n_layers: Optional[int] = None,
+    w: Optional[int] = None,
+):
+    """The env-merged bundle of tinycarlo_tpu's `compact_env_soa`
+    (rasterize_pallas.py:518-686), equal to it element for element: the
+    drawn segments of all layers of an env routed into k slots.
+
+    With `edge_layer`/`n_layers` the input is a packed edge axis
+    (B, 1, E, 2) whose edges' layers `edge_layer` gives; otherwise a
+    segment's layer is its axis-1 position. Without `w` each layer is one
+    frame strip of the frame's width; with `w` wider than 128, frames are
+    cut into 128-lane blocks, and a segment gets one slot copy per block
+    its stroke touches, its x shifted into block-local lanes. The stacked
+    frame (l, or l*nxb + xb) is folded into ay (+ frame*hp) and the band
+    word, bw = (frame*n_bands + b0c)*512 + nb.
+
+    Returns (ax, ay, abx, aby, inv, bw, counts): per slot (B, k') arrays
+    as `compact_soa`'s, counts (3, B) int32, rows [live, short, dropped]."""
+    a, b = _int_endpoints(p0, p1, torch.float32)
+    bsz, nl, e, _ = a.shape
+    ax0, ay0, bx0, by0 = a[..., 0], a[..., 1], b[..., 0], b[..., 1]
+    if thickness <= 1:
+        assert w is not None, "thickness-1 compaction needs the frame width"
+        ax0, ay0, bx0, by0, draw = _clip_normalize_t1(
+            w, h, ax0, ay0, bx0, by0, draw
+        )
+    dev = ax0.device
+    rf = float(_stroke_radius_sq(thickness)) ** 0.5
+    n_bands, hp, win = _window_rows(h, gran)
+    n_frames = nl if edge_layer is None else n_layers
+    nxb = _n_xblocks(w) if w is not None else 1
+    assert n_bands < _NB_PACK, "frame too tall for the packed band word"
+    assert n_frames * nxb * n_bands < (1 << 24) // _NB_PACK, (
+        "stacked frames too tall for band word"
+    )
+    nb, b0c = _bands(torch.minimum(ay0, by0) - rf,
+                     torch.maximum(ay0, by0) + rf, draw, h, gran)
+    if edge_layer is None:
+        lay = torch.arange(nl, dtype=torch.int32, device=dev)[None, :, None]
+    else:
+        lay = edge_layer.to(torch.int32)[None, None, :]
+    lay = lay.expand(bsz, nl, e)
+
+    if nxb > 1:
+        xlo = torch.minimum(ax0, bx0) - rf
+        xhi = torch.maximum(ax0, bx0) + rf
+        bidx = torch.arange(nxb, dtype=torch.int32, device=dev)
+        xoff = (bidx * _XB).to(torch.float32)
+        touch = (xlo[..., None] <= xoff + (_XB - 1)) & (xhi[..., None] >= xoff)
+
+        def expand(x):
+            return x[..., None].expand(*x.shape, nxb)
+
+        ax0 = ax0[..., None] - xoff
+        bx0 = bx0[..., None] - xoff
+        ay0, by0, b0c = expand(ay0), expand(by0), expand(b0c)
+        nb = torch.where(touch, nb[..., None], 0)
+        frame = expand(lay) * nxb + bidx
+    else:
+        frame = lay
+
+    roff = (frame * hp).to(torch.float32)
+    bw = (frame * n_bands + b0c) * _NB_PACK + nb
+    le = nl * e * nxb
+    *slots, n_all, n_short, n_drop = _route_soa(
+        nb.reshape(bsz, le), k, win, gran,
+        *(x.reshape(bsz, le) for x in (ax0, ay0 + roff, bx0, by0 + roff, bw)),
+        thickness,
+    )
+    return (*slots, torch.stack([n_all, n_short, n_drop]))
+
+
+def compact_env_seg(
+    u0: torch.Tensor,  # (B, L, E) float pixel coords, SoA
+    v0: torch.Tensor,
+    u1: torch.Tensor,
+    v1: torch.Tensor,
+    draw: torch.Tensor,  # (B, L, E) bool
+    k: int,
+    gran: int,
+    h: int,
+    thickness: int,
+    edge_layer: Optional[torch.Tensor] = None,  # (E,) int32
+    n_layers: Optional[int] = None,
+    w: Optional[int] = None,
+):
+    """The segment-axis bundle of tinycarlo_tpu's `compact_env_seg`
+    (rasterize_pallas.py:1111-1272), equal to it element for element: one
+    slot per segment (not per lane-block copy), the 128-lane blocks its
+    stroke touches as nxb low bits of the band word,
+
+        bw = ((lay*nxb*n_bands + b0c) * 512 + nb) << nxb | touch_bits,
+
+    and ay pre-shifted by its layer's strip base lay*nxb*hp. Segments that
+    touch no block (x-clipped) are culled like y-clipped ones (nb = 0).
+    Layers come from `edge_layer` (packed axis, (B, 1, E)) or the axis-1
+    position, as in `compact_env_soa`; the per-layer counts from a one-hot
+    of `edge_layer` or static slices of the layer axis.
+
+    Returns (idx, ax, ay, abx, aby, inv, bw, counts): the per-segment SoA
+    on the (B, L*E) axis, and idx and counts as `_route_slots` gives them
+    (row 1, the one-band tier, always 0)."""
+    lim = 1_000_000.0
+
+    def icast(x):
+        return torch.clamp(x, -lim, lim).to(torch.int32).to(torch.float32)
+
+    ax0, ay0, bx0, by0 = icast(u0), icast(v0), icast(u1), icast(v1)
+    if thickness <= 1:
+        assert w is not None, "thickness-1 compaction needs the frame width"
+        ax0, ay0, bx0, by0, draw = _clip_normalize_t1(
+            w, h, ax0, ay0, bx0, by0, draw
+        )
+    bsz, nl, e = ax0.shape
+    dev = ax0.device
+    rf = float(_stroke_radius_sq(thickness)) ** 0.5
+    n_bands, hp, win = _window_rows(h, gran)
+    n_frames = nl if edge_layer is None else n_layers
+    nxb = _n_xblocks(w) if w is not None else 1
+    assert n_bands < _NB_PACK, "frame too tall for the packed band word"
+    assert (n_frames * nxb * n_bands * _NB_PACK) << nxb < 2**31, (
+        "band word with block bits exceeds int32"
+    )
+    nb, b0c = _bands(torch.minimum(ay0, by0) - rf,
+                     torch.maximum(ay0, by0) + rf, draw, h, gran)
+    if edge_layer is None:
+        lay = torch.arange(nl, dtype=torch.int32, device=dev)[None, :, None]
+        bounds = tuple(range(0, (nl + 1) * e, e))
+    else:
+        lay = edge_layer.to(torch.int32)[None, None, :]
+        bounds = None
+    lay = lay.expand(bsz, nl, e)
+
+    xlo = torch.minimum(ax0, bx0) - rf
+    xhi = torch.maximum(ax0, bx0) + rf
+    if nxb > 1:
+        bits = sum(
+            ((xlo <= j * _XB + (_XB - 1)) & (xhi >= j * _XB)).to(torch.int32)
+            << j
+            for j in range(nxb)
+        )
+    else:
+        bits = ((xhi >= 0.0) & (xlo <= (w if w else _XB) - 1.0)).to(
+            torch.int32)
+    nb = torch.where(bits > 0, nb, 0)  # touches no block: culled
+
+    abx, aby = bx0 - ax0, by0 - ay0
+    inv = _inv_for(abx, aby, thickness)
+    ay0 = ay0 + (lay * (nxb * hp)).to(torch.float32)
+    bw = (((lay * (nxb * n_bands) + b0c) * _NB_PACK + nb) << nxb) | bits
+    le = nl * e
+    ax0, ay0, abx, aby, inv, bw, nb, lay = (
+        x.reshape(bsz, le) for x in (ax0, ay0, abx, aby, inv, bw, nb, lay)
+    )
+    idx, counts = _route_slots(nb, k, win, lay, 1, n_frames, bounds, gran)
+    return idx, ax0, ay0, abx, aby, inv, bw.to(torch.int32), counts
+
+
 def segment_overflow(
     p0: torch.Tensor,  # (B, E, 2) pixel coords on the packed edge axis
     p1: torch.Tensor,
@@ -455,82 +716,115 @@ def segment_overflow(
     return torch.clamp_min(n_copies - max_visible * nxb, 0).to(torch.int32)
 
 
-def _frame_geometry(resolution):
+def _frame_geometry(resolution, gran: int = _GRAN, split: bool = True):
     """(n_bands, hp, win, nxb, wb) of a frame: bands, padded rows, window
-    rows, lane blocks and the stamped strip's width."""
+    rows, lane blocks (1 unless `split`) and the stamped strip's width."""
     h, w = resolution
-    n_bands, hp, win = _window_rows(h)
-    nxb = _n_xblocks(w)
+    n_bands, hp, win = _window_rows(h, gran)
+    nxb = _n_xblocks(w) if split else 1
     wb = _XB if nxb > 1 else w
     return n_bands, hp, win, nxb, wb
 
 
-# Plain version: how many (slot, band) stamps are evaluated per chunk.
+# Plain version: how many (slot, band) stamps of 128 lanes are evaluated
+# per chunk.
 _PLAIN_CHUNK = 1 << 15
 
 
-def _live_bands(idx, bw, counts, n_bands: int, win: int):
+def _slot_bands(word, n, n_bands: int, win: int, gran: int, wb: int):
     """The (slot, band) pairs that the kernels stamp, chunk by chunk.
 
-    Every live slot (s < counts[0, env], nb > 0) stamps its window's bands
-    and, for a tall copy, its tail bands: the rows [rb*16, rb*16 +
-    max(nb, win/16)*16) of its stacked strip, rb = frame*n_bands + b0 the
-    band word's row band. Each (slot, band) pair is one 16-row x wb-lane
-    evaluation; the pairs come in chunks so that the temporaries stay
-    bounded. Yields (env, e, rb, j, frame, rr, row), each over the n pairs
-    of a chunk: the env, the copy, its row band, the band j of its window,
-    its stacked frame (l*nxb + xb), and (n, 16) rows from the window start
-    and in the frame's strip."""
-    dev = idx.device
-    k = idx.shape[1] - 7
-    sidx = idx[:, :k].long()
-    word = torch.gather(bw, 1, sidx)
+    `word` (N, k) holds band words rowband << 9 | nb, rowband = frame *
+    n_bands + b0. Every live slot (s < n[env], nb > 0) stamps its window's
+    bands and, for a tall slot, its tail bands: the rows [rowband*gran,
+    rowband*gran + max(nb, win/gran)*gran) of its stacked strip. Each
+    (slot, band) pair is one gran-row x wb-lane evaluation; the pairs come
+    in chunks so that the temporaries stay bounded. Yields (env, s, rb, j,
+    frame, rr, row), each over the n pairs of a chunk: the env, the slot,
+    its row band, the band j of its window, its stacked frame (l*nxb +
+    xb), and (n, gran) rows from the window start and in the frame's
+    strip."""
+    dev = word.device
     nb = word & (_NB_PACK - 1)
     rowband = word >> _NB_SHIFT
-    live = (torch.arange(k, device=dev)[None, :] < counts[0][:, None]) & (nb > 0)
-    ext = torch.clamp_min(nb, win // _GRAN)
+    live = (torch.arange(word.shape[1], device=dev)[None, :] < n[:, None]) & (
+        nb > 0)
+    ext = torch.clamp_min(nb, win // gran)
     band = torch.arange(n_bands, device=dev)
     items = torch.nonzero(live[..., None] & (band < ext[..., None]))  # (n, 3)
 
-    rr_in_band = torch.arange(_GRAN, device=dev)
-    for c in range(0, items.shape[0], _PLAIN_CHUNK):
-        env, s, j = items[c: c + _PLAIN_CHUNK].unbind(-1)
+    rr_in_band = torch.arange(gran, device=dev)
+    chunk = _PLAIN_CHUNK * _XB // max(wb, _XB)
+    for c in range(0, items.shape[0], chunk):
+        env, s, j = items[c: c + chunk].unbind(-1)
         rb = rowband[env, s]
         frame = rb // n_bands
         b0 = rb - frame * n_bands
-        rr = j[:, None] * _GRAN + rr_in_band[None, :]  # (n, 16)
-        row = b0[:, None] * _GRAN + rr  # (n, 16) local row in the strip
+        rr = j[:, None] * gran + rr_in_band[None, :]  # (n, gran)
+        row = b0[:, None] * gran + rr  # (n, gran) local row in the strip
+        yield env, s, rb, j, frame, rr, row
+
+
+def _live_bands(idx, bw, counts, n_bands: int, win: int):
+    """`_slot_bands` of an index-indirect bundle at gran 16, each pair's
+    slot replaced by its copy e = idx[env, s]."""
+    k = idx.shape[1] - 7
+    sidx = idx[:, :k].long()
+    word = torch.gather(bw, 1, sidx)
+    for env, s, rb, j, frame, rr, row in _slot_bands(
+            word, counts[0], n_bands, win, _GRAN, _XB):
         yield env, sidx[env, s], rb, j, frame, rr, row
 
 
-def _plain_hits(bundle, resolution: Tuple[int, int], thickness: int):
-    """The stamps of the masks and rank kernels, chunk by chunk: yields
-    (env, frame, row, hit) with env, frame (n,) and row (n, 16) the env,
-    stacked frame and strip rows of `_live_bands`' n bands, and hit
-    (n, 16, wb) their lit pixels. Same float arithmetic as the kernels'
-    `window_hit` (ops/csrc/stamp.cuh): a tail band is stamped in its own
-    16-row window."""
-    idx, ax, ay, abx, aby, inv, bw, counts = bundle
-    n_bands, hp, win, nxb, wb = _frame_geometry(resolution)
-    stroke = _stroke_params(thickness)
-    rr_in_band = torch.arange(_GRAN, device=ax.device)
-    xs = torch.arange(wb, device=ax.device, dtype=torch.float32)
-    for env, e, rb, j, frame, rr, row in _live_bands(idx, bw, counts,
-                                                     n_bands, win):
-        g = lambda t: t[env, e]  # noqa: E731
-        sax, say, sabx, saby, sinv = g(ax), g(ay), g(abx), g(aby), g(inv)
-        # the window origin: the 2-band window at rb, or a tail band's own
-        tail = j >= win // _GRAN
-        y0 = torch.where(tail, rb + j, rb) * _GRAN
-        ys = torch.where(tail[:, None], rr_in_band[None, :], rr)
-        ayw = say - y0.to(torch.float32)
+def _window_hits(bands, payload, wb: int, gran: int, win: int, stroke,
+                 absolute: bool, device):
+    """The fast stroke's stamps of `bands` (a `_slot_bands`-style
+    generator), chunk by chunk: yields (env, frame, row, hit) with env,
+    frame (n,) and row (n, gran) the env, stacked frame and strip rows of
+    n bands, and hit (n, gran, wb) their lit pixels. `payload(env, c)`
+    gives the (ax, ay, abx, aby, inv) of the bands' slots. Same float
+    arithmetic as the kernels' `window_hit` (ops/csrc/stamp.cuh), with the
+    pixel row taken as the Pallas kernel does:
+    - `absolute` (`_kernel`, `_kernel_env`): apy = (y0 + rr) - ay, the
+      pixel's stacked strip row minus ay;
+    - otherwise (`_tier_loops`, `_tier_loops_seg`): apy = ys - (ay - y0)
+      from the window's start row y0, a tail band in its own gran-row
+      window.
+    All values are integer-valued floats below 2^24, so the two agree."""
+    xs = torch.arange(wb, device=device, dtype=torch.float32)
+    rr_in_band = torch.arange(gran, device=device)
+    for env, c, rb, j, frame, rr, row in bands:
+        sax, say, sabx, saby, sinv = payload(env, c)
+        if absolute:
+            ys = (rb[:, None] * gran + rr).to(torch.float32)
+            apy = ys[:, :, None] - say[:, None, None]
+        else:
+            # the window origin: the 2-band window at rb, or a tail band's
+            tail = j >= win // gran
+            y0 = torch.where(tail, rb + j, rb) * gran
+            ys = torch.where(tail[:, None], rr_in_band[None, :], rr)
+            ayw = say - y0.to(torch.float32)
+            apy = ys.to(torch.float32)[:, :, None] - ayw[:, None, None]
         apx = xs[None, None, :] - sax[:, None, None]
-        apy = ys.to(torch.float32)[:, :, None] - ayw[:, None, None]
         hit = _window_hit_plain(
             apx, apy, sabx[:, None, None], saby[:, None, None],
             sinv[:, None, None], stroke,
-        )  # (n, 16, wb)
+        )  # (n, gran, wb)
         yield env, frame, row, hit
+
+
+def _plain_hits(bundle, resolution: Tuple[int, int], thickness: int):
+    """The stamps of the masks and rank kernels, as `_window_hits` yields
+    them, from a `compact_env_idx_soa` bundle."""
+    idx, ax, ay, abx, aby, inv, bw, counts = bundle
+    n_bands, hp, win, nxb, wb = _frame_geometry(resolution)
+
+    def payload(env, e):
+        return ax[env, e], ay[env, e], abx[env, e], aby[env, e], inv[env, e]
+
+    return _window_hits(_live_bands(idx, bw, counts, n_bands, win), payload,
+                        wb, _GRAN, win, _stroke_params(thickness),
+                        absolute=False, device=ax.device)
 
 
 def _exact_plain_hits(bundle, resolution: Tuple[int, int], thickness: int):
@@ -605,11 +899,13 @@ def _frames_from_strips(strip, h, w, nxb, wb):
     return frames[..., :w]
 
 
-def _masks_from_hits(hits, bsz, n_layers, resolution, out_dtype, device):
+def _masks_from_hits(hits, bsz, n_layers, resolution, out_dtype, device,
+                     geometry=None):
     """(B, L, H, W) masks, uint8 0/255 or float32 0/1, with the hits of a
-    `_plain_hits`-style generator set in a (B, L*nxb, hp, wb) strip."""
+    `_window_hits`-style generator set in a (B, L*nxb, hp, wb) strip, of
+    the production `_frame_geometry` unless `geometry` gives another."""
     h, w = resolution
-    _, hp, _, nxb, wb = _frame_geometry(resolution)
+    _, hp, _, nxb, wb = geometry or _frame_geometry(resolution)
     n_frames = n_layers * nxb
     strip = torch.zeros(bsz * n_frames * hp * wb, dtype=torch.bool,
                         device=device)
@@ -695,6 +991,125 @@ def rasterize_rank_env_plain(
         strip.scatter_reduce_(0, flat[hit], rank[hit], reduce="amax")
     frames = _frames_from_strips(strip.view(bsz, nxb, hp, wb), h, w, nxb, wb)
     return frames.to(torch.uint8).contiguous()
+
+
+def _soa_payload(ax, ay, abx, aby, inv):
+    def payload(env, s):
+        return ax[env, s], ay[env, s], abx[env, s], aby[env, s], inv[env, s]
+
+    return payload
+
+
+def rasterize_compact_soa_plain(
+    soa,
+    resolution: Tuple[int, int],
+    thickness: int,
+    gran: int = 8,
+) -> torch.Tensor:
+    """Plain PyTorch version of the frame kernel: (B, L, H, W) uint8 0/255
+    masks from a `compact_soa` bundle of granularity `gran`, the function
+    of tinycarlo_tpu's `_kernel` (rasterize_pallas.py:357-473). Every slot
+    s < counts[0, frame] with nb > 0 stamps its window of two bands at b0c
+    and, when tall, its tail bands through b0c + nb, into its (env, layer)
+    frame; frames with no live slot are zeros. Same arithmetic as
+    ops/csrc/frame_soa.cu, with `_kernel`'s absolute pixel rows."""
+    ax, ay, abx, aby, inv, bw, counts = soa
+    bsz, nl, k = ax.shape
+    geometry = _frame_geometry(resolution, gran, split=False)
+    n_bands, _, win, _, wb = geometry
+    flat = [x.reshape(bsz * nl, k) for x in (ax, ay, abx, aby, inv, bw)]
+    hits = _window_hits(
+        _slot_bands(flat[-1], counts[0], n_bands, win, gran, wb),
+        _soa_payload(*flat[:-1]), wb, gran, win, _stroke_params(thickness),
+        absolute=True, device=ax.device,
+    )
+    masks = _masks_from_hits(hits, bsz * nl, 1, resolution, torch.uint8,
+                             ax.device, geometry)
+    return masks.view(bsz, nl, *resolution)
+
+
+def rasterize_compact_env_soa_plain(
+    soa,
+    n_layers: int,
+    resolution: Tuple[int, int],
+    thickness: int,
+    gran: int = 8,
+    split: bool = False,
+) -> torch.Tensor:
+    """Plain PyTorch version of the env kernel: (B, L, H, W) uint8 0/255
+    masks from a `compact_env_soa` bundle of granularity `gran`, the
+    function of tinycarlo_tpu's `_kernel_env` (rasterize_pallas.py:
+    689-795). `split` must be True iff the compaction was given `w` (the
+    lane-split layout). Every slot s < counts[0, env] with nb > 0 stamps
+    its window and tail bands into the stacked frame its band word names;
+    the frames are the strips' rows [0, h), lane blocks side by side. Same
+    arithmetic as ops/csrc/env_soa.cu, with `_kernel_env`'s absolute pixel
+    rows."""
+    ax, ay, abx, aby, inv, bw, counts = soa
+    geometry = _frame_geometry(resolution, gran, split)
+    n_bands, _, win, _, wb = geometry
+    hits = _window_hits(
+        _slot_bands(bw, counts[0], n_bands, win, gran, wb),
+        _soa_payload(ax, ay, abx, aby, inv), wb, gran, win,
+        _stroke_params(thickness), absolute=True, device=ax.device,
+    )
+    return _masks_from_hits(hits, ax.shape[0], n_layers, resolution,
+                            torch.uint8, ax.device, geometry)
+
+
+def rasterize_env_seg_plain(
+    soa,
+    n_layers: int,
+    resolution: Tuple[int, int],
+    thickness: int,
+    gran: int = 16,
+    split: bool = True,
+) -> torch.Tensor:
+    """Plain PyTorch version of the segment kernel: (B, L, H, W) uint8
+    0/255 masks from a `compact_env_seg` bundle of granularity `gran`, the
+    function of tinycarlo_tpu's `_kernel_env_seg` (rasterize_pallas.py:
+    1345-1424, `_tier_loops_seg` :1275-1342). `split` must be True iff the
+    compaction was given a `w` above 128.
+
+    A slot s < counts[0, env] reads segment e = idx[env, s] and decodes
+    its word: touch bits = bw & (2^nxb - 1), nb = (bw >> nxb) & 511, enc =
+    bw >> nxb >> 9. For each set bit xb it stamps, in stacked frame
+    lay*nxb + xb, the window at band enc + xb*n_bands and the tall tail
+    bands [win/gran, nb) after it, with ax - xb*128 and ay + xb*hp. Same
+    arithmetic as ops/csrc/env_seg.cu, with `_tier_loops_seg`'s window-
+    relative pixel rows. A layer with no eligible segment (counts[4+l] ==
+    0) has no live slot, so its frame is zeros as the Pallas kernel
+    writes it."""
+    idx, ax, ay, abx, aby, inv, bw, counts = soa
+    geometry = _frame_geometry(resolution, gran, split)
+    n_bands, hp, win, nxb, wb = geometry
+    bsz = ax.shape[0]
+    k = idx.shape[1] - 7
+    seg = idx[:, :k].long()
+    word = torch.gather(bw, 1, seg)
+    bits = word & ((1 << nxb) - 1)
+    nb = (word >> nxb) & (_NB_PACK - 1)
+    enc = (word >> nxb) >> _NB_SHIFT
+    # one copy per (slot, touched block): slot s, block xb at s*nxb + xb
+    xb = torch.arange(nxb, device=ax.device)
+    touched = ((bits[..., None] >> xb) & 1) == 1
+    copies = (((enc[..., None] + xb * n_bands) << _NB_SHIFT)
+              | torch.where(touched, nb[..., None], 0)).reshape(bsz, k * nxb)
+
+    def payload(env, c):
+        s, x = c // nxb, c % nxb
+        e = seg[env, s]
+        return (ax[env, e] - (x * _XB).to(torch.float32),
+                ay[env, e] + (x * hp).to(torch.float32),
+                abx[env, e], aby[env, e], inv[env, e])
+
+    hits = _window_hits(
+        _slot_bands(copies, counts[0] * nxb, n_bands, win, gran, wb),
+        payload, wb, gran, win, _stroke_params(thickness), absolute=False,
+        device=ax.device,
+    )
+    return _masks_from_hits(hits, bsz, n_layers, resolution, torch.uint8,
+                            ax.device, geometry)
 
 
 def _window_hit_plain(apx, apy, abx, aby, inv, stroke):
@@ -956,9 +1371,124 @@ class ExactKernel(_Kernel):
         )
 
 
+class _SoaKernel(_Kernel):
+    """A kernel over one of the older SoA bundles (`compact_soa`,
+    `compact_env_soa`, `compact_env_seg`): (B, L, H, W) uint8 0/255 masks
+    at band granularity 8 or 16 (the kernels are compiled for those two)."""
+
+    def _launch(self, soa, counts_shape, idx, out_shape, ints, thickness,
+                gran):
+        """Check the bundle (CUDA; float32 SoA and int32 bw of one shape,
+        counts of `counts_shape`, `idx` if not None) and launch with the C
+        arguments: counts, idx if given, the SoA and bw pointers, out's,
+        the ints `ints`, the stroke's (bres, lat2, cap2) and the stream."""
+        if gran not in (8, 16):
+            raise ValueError(f"{self.NAME} kernel: gran {gran} not in (8, 16)")
+        ax, ay, abx, aby, inv, bw, counts = soa
+        dev = ax.device
+        want = {"counts": (counts, torch.int32, counts_shape)}
+        if idx is not None:
+            want["idx"] = (idx, torch.int32, (ax.shape[0], idx.shape[1]))
+        for name, t in zip(("ax", "ay", "abx", "aby", "inv"),
+                           (ax, ay, abx, aby, inv)):
+            want[name] = (t, torch.float32, tuple(ax.shape))
+        want["bw"] = (bw, torch.int32, tuple(ax.shape))
+        self._check_tensors(want, dev)
+        stroke = _stroke_params(thickness)
+        lat2, cap2 = (0.0, 0.0) if stroke[0] == "bres" else stroke[1:]
+        out = torch.empty(out_shape, dtype=torch.uint8, device=dev)
+        ptrs = [counts.data_ptr()] + ([] if idx is None else [idx.data_ptr()])
+        return self._run(
+            out, *ptrs, *(t.data_ptr() for t in (ax, ay, abx, aby, inv, bw)),
+            out.data_ptr(), *ints, gran, int(stroke[0] == "bres"), lat2, cap2,
+        )
+
+
+class FrameSoaKernel(_SoaKernel):
+    """The frame kernel's wrapper: `ops/csrc/frame_soa.cu` on CUDA tensors,
+    `rasterize_compact_soa_plain` on CPU tensors. Takes a `compact_soa`
+    bundle (the counterpart of `rasterize_compact_soa`)."""
+
+    NAME = "frame_soa"
+    SYMBOL = "tc_frame_soa_launch"
+    # tc_frame_soa_launch's C signature: 8 pointers (counts, the SoA, bw,
+    # out), 7 ints (B, L, h, w, k, gran, bres), lat2, cap2 and the stream
+    ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+                + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+
+    def __call__(self, soa, resolution: Tuple[int, int], thickness: int,
+                 gran: int = 8) -> torch.Tensor:
+        if soa[0].device.type == "cpu":
+            return rasterize_compact_soa_plain(soa, resolution, thickness,
+                                               gran)
+        h, w = resolution
+        bsz, nl, k = soa[0].shape
+        return self._launch(soa, (3, bsz * nl), None, (bsz, nl, h, w),
+                            (bsz, nl, h, w, k), thickness, gran)
+
+
+class EnvSoaKernel(_SoaKernel):
+    """The env kernel's wrapper: `ops/csrc/env_soa.cu` on CUDA tensors,
+    `rasterize_compact_env_soa_plain` on CPU tensors. Takes a
+    `compact_env_soa` bundle; `split` must be True iff the compaction was
+    given `w` (the counterpart of `rasterize_compact_env_soa`)."""
+
+    NAME = "env_soa"
+    SYMBOL = "tc_env_soa_launch"
+    # tc_env_soa_launch's C signature: 8 pointers (counts, the SoA, bw,
+    # out), 8 ints (B, L, h, w, k, split, gran, bres), lat2, cap2 and the
+    # stream
+    ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+                + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+
+    def __call__(self, soa, n_layers: int, resolution: Tuple[int, int],
+                 thickness: int, gran: int = 8,
+                 split: bool = False) -> torch.Tensor:
+        if soa[0].device.type == "cpu":
+            return rasterize_compact_env_soa_plain(
+                soa, n_layers, resolution, thickness, gran, split)
+        h, w = resolution
+        bsz, k = soa[0].shape
+        return self._launch(soa, (3, bsz), None, (bsz, n_layers, h, w),
+                            (bsz, n_layers, h, w, k, int(split)), thickness,
+                            gran)
+
+
+class EnvSegKernel(_SoaKernel):
+    """The segment kernel's wrapper: `ops/csrc/env_seg.cu` on CUDA
+    tensors, `rasterize_env_seg_plain` on CPU tensors. Takes a
+    `compact_env_seg` bundle; `split` must be True iff the compaction was
+    given a `w` above 128 (the counterpart of `rasterize_env_seg`)."""
+
+    NAME = "env_seg"
+    SYMBOL = "tc_env_seg_launch"
+    # tc_env_seg_launch's C signature: 9 pointers (counts, idx, the SoA,
+    # bw, out), 9 ints (B, L, h, w, kp, le, split, gran, bres), lat2, cap2
+    # and the stream
+    ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
+                + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+
+    def __call__(self, soa, n_layers: int, resolution: Tuple[int, int],
+                 thickness: int, gran: int = 16,
+                 split: bool = True) -> torch.Tensor:
+        idx, *rest = soa
+        if idx.device.type == "cpu":
+            return rasterize_env_seg_plain(soa, n_layers, resolution,
+                                           thickness, gran, split)
+        h, w = resolution
+        bsz, le = rest[0].shape
+        return self._launch(rest, (4 + n_layers, bsz), idx,
+                            (bsz, n_layers, h, w),
+                            (bsz, n_layers, h, w, idx.shape[1], le,
+                             int(split)), thickness, gran)
+
+
 masks_kernel = MasksKernel()
 rank_kernel = RankKernel()
 exact_kernel = ExactKernel()
+frame_soa_kernel = FrameSoaKernel()
+env_soa_kernel = EnvSoaKernel()
+env_seg_kernel = EnvSegKernel()
 
 
 def _packed_bundle(compact, u0, v0, u1, v1, draw, edge_layer, n_layers,
