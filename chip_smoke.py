@@ -10,7 +10,8 @@ any failed check:
 2. build: compiles the port's CUDA kernels from tinycarlo_torch/ops/csrc
    with nvcc (one process per source, started together) and prints the
    build time and ptxas' report.
-3. kernels: every kernel against its plain PyTorch version on the card.
+3. kernels: every rasterizer kernel against its plain PyTorch version on
+   the card.
    The masks and rank kernels on random compaction bundles (t = 1, 2, 3;
    w = 48, 160 and 640; h = 30, 128 and 480; an env with nothing to draw;
    an oversubscribed budget) and on real bundles of the bench config's
@@ -24,28 +25,55 @@ any failed check:
    (t = 1, 2, 3; gran 8 and 16; 1, 2, 3 and 5 lane blocks; 30x200 to
    480x640; split and unsplit; odd and oversubscribed budgets; an empty
    env). Bit-equality is required: the kernels are built with -fmad=false.
-4. rasterizer benchmark: tinycarlo_torch.benchmarks.rasterize_bench at
-   full size, every mode once (each kernel mode launching its kernel once
-   a render and each compaction mode none, every layout's masks with the
-   same checksum, nothing dropped); then on each kernel mode's 4096-env
-   bundle the kernel against
-   its plain version, both timed, and its bound.
-5. main path (classes): bench.py's workload through the port's entry
+4. probe kernels: the output-floor probes of benchmarks/exp_r2.py (K8
+   ovl, K9 fill, K10 skip) against their plain versions, bit for bit, on
+   outputs pre-filled with a sentinel: N = 1, 7 and 4096 envs; KK = 0, 1,
+   64, 512 (values whose int32 -> uint8 cast wraps, values the chain
+   carries past an integer, one only an unfused multiply and add leave
+   below it); the flat (N, 800, 128)
+   and (N, 5, 128, 160) uint8 and the float32 outputs at g = 1, 4, 16;
+   odd-sized and misaligned outputs; live masks with an empty, a full
+   and ragged layers.
+5. rasterizer benchmark: tinycarlo_torch.benchmarks.rasterize_bench at
+   full size, every layout mode once (each kernel mode launching its
+   kernel once a render and each compaction mode none, every layout's
+   masks with the same checksum, nothing dropped); then on each kernel
+   mode's 4096-env bundle the kernel against its plain version, both
+   timed, and its bound.
+6. probe modes: the same benchmark's probe modes ovl0 ovl64 ovl512
+   dmaflat dmaflat16 dmaf32 dma dma4 dskip dskipall at 4096 envs: one
+   launch an iteration, each checksum equal to the one its values give
+   (ovl's values i + 0.9999 cross i + 1 only through the chain), ovl's
+   time growing with KK and ovl512's no faster than its operations bound
+   (its 16384 multiply-add chains per env are not folded); per mode the
+   kernel's and its library call's time (back-to-back calls), its plain
+   version's and its bound (the benchmark's); dskip's live share.
+7. main path (classes): bench.py's workload through the port's entry
    points -- make_env_params, vector.reset(4096), the segment-overflow
-   guard, then vector.step with Stanley actions and max_episode_steps=1000,
-   the observation rendered every step and consumed by a checksum. The
-   masks kernel's launch count must equal the renders. Reports env-steps/s
-   (median of repeats, with spread) and per-stage ms; then the last
-   observation against the plain version on the same states and a small
-   rollout against the port on the CPU.
-6. exact classes: the same workload with camera.stroke: exact (cv2's
+   guard, then the bench body of tinycarlo_torch.benchmarks.bench
+   (vector.step with Stanley actions and max_episode_steps=1000, the
+   observation rendered every step and consumed by a checksum), eagerly.
+   The masks kernel's launch count must equal the renders. Reports
+   env-steps/s (median of repeats, with spread) and per-stage ms; then
+   the last observation against the plain version on the same states and
+   a small rollout against the port on the CPU.
+8. bench (CUDA graph): tinycarlo_torch.benchmarks.bench at 4096 envs, its
+   step captured once and replayed BENCH_CHUNK (400) times a repeat: its
+   JSON line (bench.py's keys and `device`) and every repeat's rate in
+   the order the repeats ran, the masks kernel launched
+   once during capture, a profiler trace of a replayed chunk holding one
+   masks kernel record a step (and the device's idle share), and 8
+   replayed steps equal bit for bit to 8 eager steps from the same state
+   and generator seed, with respawns every 3 steps (the replays draw the
+   eager steps' rows and advance the generator as far).
+9. exact classes: the same workload with camera.stroke: exact (cv2's
    ThickLine stroke, the exact kernel): env-steps/s, per-stage ms, the
    device idle share and peak memory; exact-kernel launches equal to the
    renders and no masks-kernel launch; a small rollout against the CPU
    port (frames equal wherever the two devices' exact bundles are); and a
    sample of the card's exact frames against the port's
    pure-Python cv2 oracle (`thick_stroke_mask_ref`), segment by segment.
-7. serving (rgb): the bundled pretrained combo (models.load_pretrained)
+10. serving (rgb): the bundled pretrained combo (models.load_pretrained)
    through the port's `train.evaluate` on examples/config_simple_layout.yaml,
    whose rgb frames come from the rank kernel:
    a. the example's protocol (examples/benchmark_tinycar_net.py:92-98):
@@ -57,7 +85,7 @@ any failed check:
       per-stage ms, the device idle share and the peak memory; the rank
       kernel's launch count must equal the renders;
    c. 8 envs x 20 combo-driven steps on the card and on the CPU port.
-8. exact serving: the same config with camera.stroke: exact, frames from
+11. exact serving: the same config with camera.stroke: exact, frames from
    the exact kernel's masks (the rank kernel is not launched):
    a. benchmarks/policy_parity.py's protocol: maneuvers 0, 1, 2, 4
       sequential episodes of 500 steps, one worker process per maneuver
@@ -67,8 +95,10 @@ any failed check:
       to the renders, the device idle share;
    c. 8 envs x 20 combo-driven steps on the card and on the CPU port
       (frames equal wherever the two devices' exact bundles are).
-9. results: the `kernels` JSON line, the card line and, last, the `ok`
-   JSON line.
+12. results: the `kernels` JSON line (K1-K10), the card line and, last,
+   the `ok` JSON line.
+
+Phases 4, 6 and 8 print their seconds.
 
 Every time is measured on the card in this run (CUDA events, or host
 clocks around work that ends in torch.cuda.synchronize()).
@@ -78,9 +108,13 @@ import json
 import multiprocessing
 import os
 import statistics
-import subprocess
 import sys
 import time
+
+# the card's line and the bounds' peaks and rule, shared with the port's
+# benchmarks (an ImportError here: run from the root of a checkout)
+from tinycarlo_torch.utils.helper import (PEAK_F32_PER_S, PEAK_I32_PER_S,
+                                          bound, card_line)
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -143,13 +177,6 @@ STEER_ATOL_MOVED = 2e-2
 # envs of the exact main path's last frames held against the cv2 oracle
 ORACLE_ENVS = 16
 
-# H100 SXM published peaks (NVIDIA data sheet): HBM bandwidth and
-# float32 rate outside the tensor cores.
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_PER_S = 67e12
-# int32 rate: 132 SMs x 64 INT32 lanes per SM per clock (half the float32
-# lanes; NVIDIA's Hopper architecture white paper) x 1.98 GHz boost.
-PEAK_I32_PER_S = 132 * 64 * 1.98e9
 # float32 operations the masks kernel spends per evaluated pixel
 # (masks.cu window_hit). Split stroke: apx, apy, tu 4, clip 2, dx 2, dy 2,
 # d2 3, the tu range test 2, the d2 compare 1. Bresenham (t=1): apx, apy,
@@ -187,15 +214,6 @@ class CheckFailed(RuntimeError):
 def check(cond, msg):
     if not cond:
         raise CheckFailed(msg)
-
-
-def card_line():
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    )
-    return out.stdout.strip().splitlines()[0]
 
 
 def cuda_ms(fn, repeats=7, warmup=2):
@@ -455,14 +473,6 @@ def soa_bytes_and_ops(rk, mode, soa, res, t, gran, split, out_bytes):
     return n_in + out_bytes, pixels * OPS_PER_PIXEL[stroke[0]]
 
 
-def bound(n_bytes, n_ops, peak_ops):
-    """(bound ms, "bytes" or "operations") on the H100."""
-    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = n_ops / peak_ops * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                 else "operations"), t_bytes, t_ops
-
-
 def main():
     import torch
 
@@ -483,6 +493,7 @@ def main():
 
     from tinycarlo_torch import env as fenv
     from tinycarlo_torch import vector
+    from tinycarlo_torch.ops import probe_kernels as pk
     from tinycarlo_torch.ops import rasterize as ras
     from tinycarlo_torch.ops import rasterize_kernels as rk
     from tinycarlo_torch.ops._build import libraries
@@ -504,20 +515,39 @@ def main():
     exact_err = check_exact_kernels(rk, fenv, vector, params_exact, "cuda")
     soa_errs = check_soa_kernels(rk, "cuda")
 
-    # ---- 4. rasterizer benchmark --------------------------------------------
-    soa_entries = rasterizer_bench(card, rk, soa_errs)
+    # ---- 4. probe kernels against their plain versions ---------------------
+    phase = time.perf_counter()
+    probe_errs = check_probe_kernels(pk, "cuda")
+    print(f"probe kernels: {time.perf_counter() - phase:.1f} s")
 
-    # ---- 5. main path --------------------------------------------------------
+    # ---- 5. rasterizer benchmark --------------------------------------------
+    from tinycarlo_torch.benchmarks import rasterize_bench as rb
+
+    inputs = rb.Inputs("cuda")
+    soa_entries = rasterizer_bench(card, rk, soa_errs, inputs)
+
+    # ---- 6. probe modes -------------------------------------------------------
+    phase = time.perf_counter()
+    probe_entries = probe_modes(card, pk, inputs, probe_errs)
+    del inputs
+    print(f"probe modes: {time.perf_counter() - phase:.1f} s")
+
+    # ---- 7. main path --------------------------------------------------------
     kernels = [classes_path(card, rk, fenv, vector, stanley_steering, params,
                             max_err, FAST_REPEATS)]
+    kernels[0].pop("run")
 
-    # ---- 6. exact classes ----------------------------------------------------
+    # ---- 8. bench, replayed as a CUDA graph ----------------------------------
+    phase = time.perf_counter()
+    graph_bench(card, rk)
+    print(f"bench (CUDA graph): {time.perf_counter() - phase:.1f} s")
+
+    # ---- 9. exact classes ----------------------------------------------------
     exact_entry = classes_path(card, rk, fenv, vector, stanley_steering,
                                params_exact, exact_err, REPEATS)
     check_exact_oracle(fenv, rk, params_exact, exact_entry.pop("run"))
 
-    # ---- 7, 8. serving, fast and exact --------------------------------------
-    kernels[0].pop("run")
+    # ---- 10, 11. serving, fast and exact -------------------------------------
     # the protocols' three maneuvers run at once, one worker process each:
     # at B = 1 or 5 a step is host-bound
     with multiprocessing.get_context("spawn").Pool(
@@ -525,9 +555,9 @@ def main():
         kernels.append(serve(card, rank_err, pool))
         kernels.append(exact_entry)
         serve_exact(card, pool)
-    kernels += soa_entries
+    kernels += soa_entries + probe_entries
 
-    # ---- 9. results ----------------------------------------------------------
+    # ---- 12. results ---------------------------------------------------------
     print(f"chip_smoke: {time.perf_counter() - start:.1f} s after the "
           f"device check")
     print(json.dumps({"kernels": kernels}))
@@ -540,7 +570,7 @@ def main():
 
 def classes_path(card, rk, fenv, vector, stanley_steering, params, err,
                  repeats):
-    """Phases 5 and 6: the bench workload on the params' stroke, its
+    """Phases 7 and 9: the bench workload on the params' stroke, its
     checks and stage times. Returns the kernel's entry of the `kernels`
     line, with the run under "run"."""
     import torch
@@ -551,8 +581,7 @@ def classes_path(card, rk, fenv, vector, stanley_steering, params, err,
     for k in (rk.masks_kernel, rk.rank_kernel, rk.exact_kernel):
         k.launches = 0
     torch.cuda.reset_peak_memory_stats()
-    run = run_main_path(fenv, vector, stanley_steering, params, N_ENVS,
-                        CHUNK, repeats)
+    run = run_main_path(fenv, vector, params, N_ENVS, CHUNK, repeats)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     launches = kernel.launches
     renders = run["steps"]
@@ -575,7 +604,7 @@ def classes_path(card, rk, fenv, vector, stanley_steering, params, err,
     compare_with_cpu(fenv, vector, stanley_steering, params)
     times = stage_times(fenv, vector, rk, params, run["vstate"])
     wall_ms = 1e3 * N_ENVS / statistics.median(rates)
-    busy_ms, top, by_name = device_profile(lambda: run["body"](
+    busy_ms, top, by_name, _ = device_profile(lambda: run["body"](
         run["vstate"], run["info"], torch.zeros((), dtype=torch.int64,
                                                 device="cuda")))
     times["kernel_device"] = kernel_device_ms(by_name, symbol)
@@ -838,9 +867,9 @@ def check_soa_kernels(rk, dev):
     return err
 
 
-def rasterizer_bench(card, rk, errs):
+def rasterizer_bench(card, rk, errs, inputs):
     """The port's rasterizer benchmark (tinycarlo_torch.benchmarks.
-    rasterize_bench) at full size: every mode once, its kernels' launch
+    rasterize_bench) at full size on `inputs`: every layout mode once, its kernels' launch
     counts from that run, every kernel mode rendering the same masks
     (equal checksums, nothing dropped); then, on each kernel mode's
     4096-env bundle, the kernel against its plain version, both timed, and
@@ -850,7 +879,6 @@ def rasterizer_bench(card, rk, errs):
 
     from tinycarlo_torch.benchmarks import rasterize_bench as rb
 
-    inputs = rb.Inputs("cuda")
     for k in rb.KERNELS:
         k.launches = 0
     results = rb.run(rb.MODES, "cuda", inputs=inputs)
@@ -939,35 +967,270 @@ def rasterizer_bench(card, rk, errs):
     return [entries["frame_soa"], entries["env_soa"], entries["env_seg"]]
 
 
-def run_main_path(fenv, vector, stanley_steering, params, n_envs, chunk,
-                  repeats):
-    """bench.py's loop (bench.py:78-111) through the port's entry points."""
+# K8-K10 cases: batch sizes, and (KK, start value) of the ovl kernel.
+# 29.0 stays in uint8; 300.5 and -3.7 wrap in the int32 -> uint8 cast.
+# The chain decides the integer in the others: 0.9999 reaches 1.000001
+# in one round, 254.99 reaches 255 in round 29 of 64, 99.93 reaches 100
+# in round 367 of 512; 16.9998836517334 gives 16.999998 with the multiply
+# and the add rounded apart but 17 fused (fma), so it needs -fmad=false.
+PROBE_NS = (1, 7, 4096)
+OVL_CASES = ((0, 29.0), (1, 300.5), (64, -3.7), (1, 0.9999),
+             (1, 16.9998836517334), (64, 254.99), (512, 99.93))
+# the probe modes phase 6 runs (tinycarlo_torch.benchmarks.rasterize_bench)
+# and the mode whose kernel time stands in each kernel's `kernels` entry
+PROBE_ENTRY_MODES = {"probe_ovl": "ovl64", "probe_fill": "dma",
+                     "probe_skip": "dskip"}
+PROBE_REPLACES = {
+    "probe_ovl": "benchmarks/exp_r2.py:156 (okernel, ovl<KK>)",
+    "probe_fill": "benchmarks/exp_r2.py:224 (zkernel, dma[g]); :192 "
+                  "(dmaflat[g]); :206 (dmaf32)",
+    "probe_skip": "benchmarks/exp_r2.py:261 (dkernel, dskip, dskipall)",
+}
+
+
+def probe_pair(kernel, plain, shape, dtype, args, dev, offset=False):
+    """Max |kernel - plain| of one probe kernel on outputs of `shape`
+    pre-filled with a sentinel (0 required); with `offset` the kernel's
+    output starts one env past its allocation's start (misaligned)."""
     import torch
 
+    sentinel = 171 if dtype == torch.uint8 else -7.0
+    full = torch.full((shape[0] + 1,) + tuple(shape[1:]), sentinel,
+                      dtype=dtype, device=dev)
+    got = kernel(full[1:] if offset else full[:-1], *args)
+    want = plain(torch.full(shape, sentinel, dtype=dtype, device=dev), *args)
+    err = (got.float() - want.float()).abs().max().item() if got.numel() else 0
+    check(err == 0.0, f"{kernel.NAME} kernel differs from its plain version "
+          f"by {err} ({shape}, {dtype}, {args[1:]})")
+    return err
+
+
+def probe_live(n, seed, dev):
+    """(5, n) int32 live frames: layer 0 empty, layer 1 full, layers 2-4
+    ragged (numpy-seeded)."""
+    import numpy as np
+    import torch
+
+    live = (np.random.default_rng(seed).random((5, n)) < 0.5).astype(np.int32)
+    live[0] = 0
+    live[1] = 1
+    return torch.tensor(live, device=dev)
+
+
+def check_probe_kernels(pk, dev):
+    """Phase 4: K8-K10 against their plain versions on the card, bit for
+    bit, on outputs pre-filled with a sentinel. Returns {kernel name: max
+    |error|}."""
+    import torch
+
+    err = {k.NAME: 0.0 for k in pk.KERNELS}
+    u8, f32 = torch.uint8, torch.float32
+    frame = (5, 128, 160)
+    fill = lambda o, x, _: pk.fill_plain(o, x)  # noqa: E731
+    for n in PROBE_NS:
+        for kk, v in OVL_CASES:
+            err["probe_ovl"] = max(err["probe_ovl"], probe_pair(
+                pk.ovl_kernel, pk.ovl_plain, (n,) + frame, u8, (v, kk), dev))
+        for shape, dtype, value in (((n, 800, 128), u8, 200),
+                                    ((n,) + frame, u8, 29),
+                                    ((n,) + frame, f32, -1.5),
+                                    ((n, 3, 7, 5), u8, 77),
+                                    ((n, 3, 7, 5), f32, 3.25)):
+            for g in (1, 4, 16):
+                err["probe_fill"] = max(err["probe_fill"], probe_pair(
+                    pk.fill_kernel, fill, shape, dtype, (value, g), dev,
+                    offset=shape[1] == 3))
+        live = probe_live(n, n, dev)
+        for shape in ((n * 5, 128, 256), (n * 5, 3, 37)):
+            err["probe_skip"] = max(err["probe_skip"], probe_pair(
+                pk.skip_kernel, pk.skip_plain, shape, u8, (live, 99), dev,
+                offset=shape[1] == 3))
+    sync(dev)
+    print(f"probe kernels: ovl, fill and skip kernels equal to their plain "
+          f"versions for N = {PROBE_NS} (KK, v = {OVL_CASES}; g = 1, 4, 16; "
+          "uint8 and float32; odd-sized and misaligned outputs; empty, full "
+          "and ragged layers)")
+    return err
+
+
+def probe_checksum(pk, rb, mode, inputs):
+    """The checksum a probe mode's ITERS iterations must give, from the
+    values they fill with."""
+    import torch
+
+    kind, kk = rb.parse_probe(mode)
+    n, nl = inputs.packed[2].shape[0], inputs.n_layers
+    values = range(rb.ITERS)
+    if kind == "ovl":
+        values = [int(pk.ovl_plain(torch.empty(1, dtype=torch.uint8),
+                                   i + rb.OVL_FRACTION, kk)[0])
+                  for i in values]
+    if kind == "dmaf32":
+        return 4 * sum(values)
+    if kind in ("dskip", "dskipall"):
+        live = int((rb.probe_live(mode, inputs) > 0).sum())
+        return sum(values) * live * 4 * rb.FRAME_W
+    return sum(values) * n * nl * rb.H * rb.W
+
+
+def probe_modes(card, pk, inputs, errs):
+    """Phase 6: the probe modes of the rasterizer benchmark at full size:
+    one launch an iteration, each checksum what its values give, ovl's
+    time growing with KK and ovl512 no faster than its operations bound;
+    per mode the kernel and its library call alone (the benchmark's
+    back-to-back calls), its plain version and the benchmark's bound.
+    Phase 4 held each kernel against its plain version at this size;
+    `errs` are its errors. Returns the `kernels` entries of K8, K9 and
+    K10."""
+    from tinycarlo_torch.benchmarks import rasterize_bench as rb
+
+    for k in pk.KERNELS:
+        k.launches = 0
+    results = rb.run(rb.PROBES, "cuda", inputs=inputs)
+    launches = {k.NAME: k.launches for k in pk.KERNELS}
+    want = {k.NAME: 0 for k in pk.KERNELS}
+    for mode in rb.PROBES:
+        r = results[mode]
+        check(r["launches"] == 1, f"{mode} launched {r['launches']} "
+              "kernels an iteration")
+        expected = probe_checksum(pk, rb, mode, inputs)
+        check(r["checksum"] == expected, f"{mode} checksum {r['checksum']}, "
+              f"its values give {expected}")
+    print(f"probe modes: {launches} kernel launches, one an iteration; "
+          "every checksum what its values give")
+
+    entries, ovl_ms = {}, {}
+    for mode in rb.PROBES:
+        r = results[mode]
+        kernel, out, _, _, _, live = rb.probe_setup(mode, inputs)
+        want[kernel.NAME] += (rb.REPEATS + 2) * rb.ITERS
+        _, param = rb.parse_probe(mode)
+        # the plain version of iteration 1's fill, on the mode's output
+        plain = {"probe_ovl": lambda: pk.ovl_plain(
+                     out, 1 + rb.OVL_FRACTION, param),
+                 "probe_fill": lambda: pk.fill_plain(out, 1),
+                 "probe_skip": lambda: pk.skip_plain(out, live, 1)}[
+            kernel.NAME]
+        plain_ms = rb.ms_per_call(plain, 5, out.device)
+        del out
+        # the kernel and its library call alone as the benchmark timed
+        # them: ITERS back-to-back calls, so a ~0.03 ms launch from Python
+        # hides behind the kernel before it
+        ms, library_ms = r["kernel_ms"], r["library_ms"]
+        bound_ms, by = r["bound_ms"], r["bound_by"]
+        t_bytes, t_ops = r["bytes_ms"], r["ops_ms"]
+        lib = "null" if library_ms is None else f"{library_ms:.4f} ms"
+        share = ("" if live is None else
+                 f"; live share {r['live_share']:.4f}")
+        print(f"{kernel.NAME} kernel ({mode}) on {card}: {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, library {lib}, bound "
+              f"{r['bytes'] / 1e6:.1f} MB -> {t_bytes:.4f} ms, "
+              f"{r['ops'] / 1e9:.2f} GOP f32 -> {t_ops:.4f} ms: {by} bind"
+              + share)
+        if kernel is pk.ovl_kernel:
+            ovl_ms[param] = ms
+        if mode == "ovl512":
+            check(ms >= t_ops, f"ovl512 took {ms:.4f} ms, under its "
+                  f"{t_ops:.4f} ms operations bound: the chains were folded")
+        if PROBE_ENTRY_MODES[kernel.NAME] == mode:
+            entries[kernel.NAME] = {
+                "name": kernel.NAME,
+                "route": "cuda",
+                "source": f"tinycarlo_torch/ops/csrc/{kernel.NAME}.cu",
+                "replaces": PROBE_REPLACES[kernel.NAME],
+                "launches": launches[kernel.NAME],
+                "max_abs_err": errs[kernel.NAME],
+                "ms": ms,
+                "plain_ms": plain_ms,
+                "bound_ms": bound_ms,
+                "bound_by": by,
+                # ovl: no single PyTorch call runs the multiply-add chain
+                # and the fill; ovl0 is the fill's
+                "library_ms": library_ms,
+            }
+    check(launches == want, f"the probe modes' kernel launches {launches}, "
+          f"not one an iteration {want}")
+    check(ovl_ms[0] < ovl_ms[64] < ovl_ms[512], f"the ovl kernel's time does "
+          f"not grow with KK: {ovl_ms}")
+    return [entries[name] for name in ("probe_ovl", "probe_fill",
+                                       "probe_skip")]
+
+
+def graph_bench(card, rk):
+    """Phase 8: tinycarlo_torch.benchmarks.bench at 4096 envs, the step
+    replayed as a CUDA graph: its JSON line with bench.py's keys and
+    `device`; the masks kernel launched once during capture (after the
+    warm-up's launches) and recorded once a step in a profiler trace of a
+    replayed chunk; the device's idle share; 8 replayed steps equal bit
+    for bit to 8 eager steps from one state and generator seed, with
+    respawns (max_episode_steps 3), the generator advanced as far."""
+    from tinycarlo_torch.benchmarks import bench as pbench
+
+    kernels = (rk.masks_kernel, rk.rank_kernel, rk.exact_kernel)
+    for k in kernels:
+        k.launches = 0
+    result = pbench.measure("cuda")
+    launched = {k.NAME: k.launches for k in kernels}
+    check(launched == {"masks": pbench.WARMUP + 1, "rank": 0, "exact": 0},
+          f"bench launches {launched}: not {pbench.WARMUP} warm-up steps and "
+          "one captured step of the masks kernel")
+    line = pbench.result_line(result, pbench.N_ENVS, pbench.REPEATS, card)
+    keys = {"metric", "value", "unit", "vs_baseline",
+            "baseline_reference_steps_per_s", "baseline_measured_live",
+            "spread_min", "spread_max", "repeats", "n_envs", "device"}
+    check(set(line) == keys, f"bench line keys {sorted(line)}")
+    check(result["checksum"] > 0, "bench observations were not rendered")
+    print("bench: " + json.dumps(line))
+    print(f"bench: {pbench.N_ENVS} envs x {pbench.CHUNK} replays a repeat, "
+          f"checksum {result['checksum']}; repeats in the order they ran: "
+          + " ".join(f"{r:.1f}" for r in result["rates"]) + " env-steps/s")
+
+    graph = result["graph"]
+    # the idle share is read from the traced replays' own wall: untraced
+    # replays run at another pace than traced ones
+    busy_ms, top, by_name, traced_ms = device_profile(graph.replay,
+                                                      calls=CHUNK)
+    masks_ms = kernel_device_ms(by_name, "masks_kernel")
+    check(busy_ms is not None and masks_ms is not None, "a trace of "
+          f"{CHUNK} replays does not hold one masks kernel record a step")
+    wall_ms = 1e3 * pbench.N_ENVS / result["median"]
+    print(f"bench step (graph replay) on {card}: wall {wall_ms:.4f} ms; "
+          f"traced: wall {traced_ms:.4f} ms, device busy {busy_ms:.4f} ms, "
+          f"idle share {1 - busy_ms / traced_ms:.4f}, "
+          f"{sum(c for _, c in by_name.values()):g} kernel records a step; "
+          f"masks kernel {masks_ms:.4f} ms device, one record a step over "
+          f"{CHUNK} traced replays")
+    for key, ms, count in top:
+        print(f"  {ms:.4f} ms/step x{count}: {key}")
+    del result, graph
+
+    same = pbench.graph_matches_eager(
+        pbench.fenv.make_env_params(pbench.CONFIG), pbench.N_ENVS, steps=8,
+        max_episode_steps=3)
+    check(same["equal"], "8 replayed steps differ from 8 eager steps")
+    eager_offset, graph_offset = same["offsets"]
+    check(same["respawns"] > 0 and eager_offset == graph_offset > 0,
+          f"respawns {same['respawns']}, generator offsets {same['offsets']}")
+    print(f"bench graph: 8 replayed steps equal to 8 eager steps bit for bit "
+          f"({same['respawns']} respawns; generator offset {graph_offset} "
+          "after both)")
+
+
+def run_main_path(fenv, vector, params, n_envs, chunk, repeats):
+    """bench.py's loop (bench.py:78-111) through the port's entry points:
+    the bench body of tinycarlo_torch.benchmarks.bench, run eagerly."""
+    import torch
+
+    from tinycarlo_torch.benchmarks.bench import make_body
+
     dev = params.device
-    max_steer = params.cfg.car.max_steering_angle
     vstate, _ = vector.reset(params, n_envs, seed=0, render=False)
     overflow = int(fenv.check_segment_overflow(params, vstate.env).sum())
     check(overflow == 0, f"{overflow} rasterizer slot copies dropped -- "
           "raise CameraConfig.max_visible_segments")
     info = fenv._info(params, vstate.env)
     checksum = torch.zeros((), dtype=torch.int64, device=dev)
-    speed = torch.full((n_envs,), SPEED, device=dev)
-    maneuver = torch.zeros(n_envs, dtype=torch.int32, device=dev)
-
-    def body(vstate, info, checksum):
-        obs = fenv.render_observation_batch(params, vstate.env)
-        # consume the observation (a contiguous 4-row band, as bench.py)
-        checksum = checksum + obs[..., 60:64, :].sum(dtype=torch.int64)
-        steering = torch.clamp(stanley_steering(
-            info["cte"], info["heading_error"], SPEED, K, max_steer
-        ), -1.0, 1.0)
-        action = {"car_control": torch.stack([speed, steering], dim=-1),
-                  "maneuver": maneuver}
-        vstate, _, rew, term, trunc, info = vector.step(
-            params, vstate, action, render=False, max_episode_steps=1000
-        )
-        return vstate, info, checksum, obs, rew
+    body = make_body(params, n_envs)
 
     for _ in range(WARMUP):
         vstate, info, checksum, obs, rew = body(vstate, info, checksum)
@@ -1073,9 +1336,11 @@ def check_exact_oracle(fenv, rk, params, run):
 
 def device_profile(fn, calls=5):
     """(device-busy ms per call, top kernels, {kernel name: (ms per call,
-    records per call)}) of fn() from a torch.profiler trace: the sum of the
-    CUDA kernels' device time over `calls` calls; (None, [], {}) if the
-    trace holds no device time."""
+    records per call)}, wall ms per traced call) of fn() from a
+    torch.profiler trace: the sum of the CUDA kernels' device time over
+    `calls` calls; (None, [], {}, wall) if the trace holds no device time.
+    The traced wall includes the profiler's host cost of every eager op;
+    a replayed graph has none."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1083,21 +1348,23 @@ def device_profile(fn, calls=5):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - start) / calls * 1e3
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in kernels)
     if busy_us <= 0:
-        return None, [], {}
+        return None, [], {}, wall_ms
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
     by_name = {e.key: (e.self_device_time_total / 1e3 / calls,
                        e.count / calls) for e in kernels}
     return busy_us / 1e3 / calls, [
         (e.key[:70], e.self_device_time_total / 1e3 / calls, e.count // calls)
         for e in top
-    ], by_name
+    ], by_name, wall_ms
 
 
 def kernel_device_ms(by_name, symbol):
@@ -1413,7 +1680,7 @@ def serving_step_fn(params, act):
 
 
 def serve(card, rank_err, pool):
-    """Phase 7: the bundled combo served on rgb frames through the port's
+    """Phase 10: the bundled combo served on rgb frames through the port's
     evaluate, the protocol's maneuvers in `pool`'s processes. Returns the
     rank kernel's entry of the `kernels` line."""
     from tinycarlo_torch import env as fenv
@@ -1432,7 +1699,7 @@ def serve(card, rank_err, pool):
     times = serving_stage_times(fenv, vector, rk, ras, params, vstate, act,
                                 stack, m)
     wall_ms = 1e3 * N_ENVS / rate
-    busy_ms, top, by_name = device_profile(lambda: serving_step(vstate))
+    busy_ms, top, by_name, _ = device_profile(lambda: serving_step(vstate))
     times["rank kernel_device"] = kernel_device_ms(by_name, "rank_kernel")
     fmt = lambda x: "not measured" if x is None else f"{x:.4f} ms"  # noqa
     print(f"serving per step at {N_ENVS} envs on {card}, event ms / "
@@ -1479,7 +1746,7 @@ def serve(card, rank_err, pool):
 
 
 def serve_exact(card, pool):
-    """Phase 8: the bundled combo on the exact stroke's rgb frames (the
+    """Phase 11: the bundled combo on the exact stroke's rgb frames (the
     exact kernel's masks, decoded): policy_parity.py's protocol (its
     maneuvers in `pool`'s processes), 4096 envs, and the card against the
     CPU port."""
@@ -1494,7 +1761,7 @@ def serve_exact(card, pool):
     rate, peak_gb = serving_batch(card, params, act, rk.exact_kernel,
                                   FAST_REPEATS)
     vstate, _, _, serving_step = serving_step_fn(params, act)
-    busy_ms, top, by_name = device_profile(lambda: serving_step(vstate))
+    busy_ms, top, by_name, _ = device_profile(lambda: serving_step(vstate))
     wall_ms = 1e3 * N_ENVS / rate
     kernel_ms = kernel_device_ms(by_name, "exact_kernel")
     if busy_ms is None:

@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions on the
-card. These tests need an NVIDIA GPU and nvcc and skip without them: a
+card, and the headline bench's CUDA graph against eager steps. These
+tests need an NVIDIA GPU and nvcc and skip without them: a
 CUDA kernel has no CPU mode (the CPU tests hold the plain versions against
 the JAX package instead).
 
@@ -15,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from tinycarlo_torch.ops import probe_kernels as pk
 from tinycarlo_torch.ops import rasterize as ras
 from tinycarlo_torch.ops import rasterize_kernels as rk
 
@@ -337,3 +339,67 @@ def test_soa_kernels_keep_a_mismatched_gran_in_the_frame():
         assert bool(((out == 0) | (out == 255)).all())
         _launched(kernel, compact(16), args(16), plain)
 
+
+
+def _probe_case(kernel, plain, shape, dtype, args, offset=False):
+    """The probe kernel and its plain version on outputs pre-filled with a
+    sentinel (the kernel's one env past its allocation's start with
+    `offset`): equal, one launch."""
+    sentinel = 171 if dtype == torch.uint8 else -7.0
+    full = torch.full((shape[0] + 1,) + shape[1:], sentinel, dtype=dtype,
+                      device="cuda")
+    got = full[1:] if offset else full[:-1]
+    want = torch.full(shape, sentinel, dtype=dtype, device="cuda")
+    before = kernel.launches
+    kernel(got, *args)
+    assert kernel.launches == before + 1
+    plain(want, *args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n", [1, 7, 64])
+def test_probe_kernels_match_plain(n):
+    """K8-K10 bit-equal to their plain versions: KK 0, 1, 64 and 512 --
+    values that wrap in the int32 -> uint8 cast, values the chain carries
+    past an integer (0.9999 in one round, 254.99 in 29 of 64, 99.93 in
+    367 of 512), and 16.9998836517334, which a fused multiply-add would
+    carry to 17 and the unfused chain leaves at 16.999998 --, uint8 and
+    float32 fills at g = 1, 4, 16 on the bench shape and on an odd-sized,
+    misaligned one, and live masks with an empty, a full and ragged
+    layers."""
+    _require_cuda()
+    frame = (5, 128, 160)
+    for kk, v in ((0, 29.0), (1, 300.5), (64, -3.7), (1, 0.9999),
+                  (1, 16.9998836517334), (64, 254.99), (512, 99.93)):
+        _probe_case(pk.ovl_kernel, pk.ovl_plain, (n,) + frame, torch.uint8,
+                    (v, kk))
+    for shape, dtype, value in (((n, 800, 128), torch.uint8, 200),
+                                ((n,) + frame, torch.float32, -1.5),
+                                ((n, 3, 7, 5), torch.uint8, 77),
+                                ((n, 3, 7, 5), torch.float32, 3.25)):
+        for g in (1, 4, 16):
+            _probe_case(pk.fill_kernel, lambda o, x, _: pk.fill_plain(o, x),
+                        shape, dtype, (value, g), offset=shape[1] == 3)
+    live = (torch.rand((5, n), generator=torch.Generator().manual_seed(n))
+            < 0.5).to(torch.int32)
+    live[0], live[1] = 0, 1
+    for shape in ((n * 5, 128, 256), (n * 5, 3, 37)):
+        _probe_case(pk.skip_kernel, pk.skip_plain, shape, torch.uint8,
+                    (live.cuda(), 99), offset=shape[1] == 3)
+
+
+def test_bench_graph_matches_eager():
+    """Six replays of the bench's captured step equal six eager steps bit
+    for bit from one state and generator seed, with every env respawning
+    every two steps (and any that leaves the road): the replays draw the
+    eager steps' respawn rows and advance the generator as far."""
+    _require_cuda()
+    from tinycarlo_torch import env as fenv
+    from tinycarlo_torch.benchmarks import bench as pbench
+
+    params = fenv.make_env_params(pbench.CONFIG)
+    r = pbench.graph_matches_eager(params, 256, steps=6, max_episode_steps=2)
+    assert r["equal"]
+    assert r["respawns"] >= 3 * 256
+    assert r["offsets"][0] == r["offsets"][1] > 0

@@ -1,4 +1,5 @@
-"""Small scalar/angle helpers and the port's device policy.
+"""Small scalar/angle helpers, the port's device policy, and the card's
+name and peaks for the benchmarks' bounds.
 
 Semantics mirror the reference helpers (reference: tinycarlo/helper.py:4-24)
 as batched torch ops; counterpart of tinycarlo_tpu/utils/helper.py.
@@ -8,11 +9,19 @@ from __future__ import annotations
 import dataclasses
 import math
 import os
+import subprocess
 
 import numpy as np
 import torch
 
 TWO_PI = 2.0 * math.pi
+# H100 SXM published peaks (NVIDIA data sheet): HBM bandwidth and
+# float32 rate outside the tensor cores.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_PER_S = 67e12
+# int32 rate: 132 SMs x 64 INT32 lanes per SM per clock (half the float32
+# lanes; NVIDIA's Hopper architecture white paper) x 1.98 GHz boost.
+PEAK_I32_PER_S = 132 * 64 * 1.98e9
 
 
 def getenv(key: str) -> bool:
@@ -80,3 +89,23 @@ def to_device(obj, device):
     if isinstance(obj, torch.Tensor):
         return obj.to(device)
     return obj
+
+
+def bound(n_bytes: int, n_ops: int, peak_ops: float = PEAK_F32_PER_S
+          ) -> tuple:
+    """(least ms on the H100, "bytes" or "operations", the bytes' ms, the
+    operations' ms) of work that moves n_bytes and does n_ops operations
+    at peak_ops a second: the larger of the two times binds."""
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = n_ops / peak_ops * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations"), t_bytes, t_ops
+
+
+def card_line() -> str:
+    """nvidia-smi's name and power limit of the card."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
