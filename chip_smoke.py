@@ -13,7 +13,7 @@ any failed check:
 3. kernels: every rasterizer kernel against its plain PyTorch version on
    the card.
    The masks and rank kernels on random compaction bundles (t = 1, 2, 3;
-   w = 48, 160 and 640; h = 30, 128 and 480; an env with nothing to draw;
+   w = 48, 150, 160 and 640; h = 30, 100, 128 and 480; an env with nothing to draw;
    an oversubscribed budget) and on real bundles of the bench config's
    states, masks in uint8 and float32, rank also against rank_from_masks
    of the masks kernel. The exact kernel on random exact bundles (t = 2,
@@ -54,15 +54,20 @@ any failed check:
    (vector.step with Stanley actions and max_episode_steps=1000, the
    observation rendered every step and consumed by a checksum), eagerly.
    The masks kernel's launch count must equal the renders. Reports
-   env-steps/s (median of repeats, with spread) and per-stage ms; then
-   the last observation against the plain version on the same states and
-   a small rollout against the port on the CPU.
+   env-steps/s (median of repeats, with spread) and per-stage ms, the
+   kernel alone also in back-to-back calls beside K9's fill and `fill_`
+   of an output of its size (the store floor); then the last
+   observation against the plain version on the same states and a small
+   rollout against the port on the CPU.
 8. bench (CUDA graph): tinycarlo_torch.benchmarks.bench at 4096 envs, its
    step captured once and replayed BENCH_CHUNK (400) times a repeat: its
    JSON line (bench.py's keys and `device`) and every repeat's rate in
-   the order the repeats ran, the masks kernel launched
-   once during capture, a profiler trace of a replayed chunk holding one
-   masks kernel record a step (and the device's idle share), and 8
+   the order the repeats ran, each with the card's SM clock, memory
+   clock, power draw and temperature read after it, the masks kernel
+   launched once during capture, a profiler trace of a replayed chunk
+   holding one masks kernel record a step (and the device's idle share),
+   then once the host's ms per replay call (replays enqueued while a spin
+   kernel holds the card), and 8
    replayed steps equal bit for bit to 8 eager steps from the same state
    and generator seed, with respawns every 3 steps (the replays draw the
    eager steps' rows and advance the generator as far).
@@ -234,6 +239,28 @@ def cuda_ms(fn, repeats=7, warmup=2):
     return statistics.median(times)
 
 
+def back_to_back_ms(fns, calls=30, rounds=6):
+    """{name: median ms per call} of each fn over `rounds` runs of `calls`
+    back-to-back calls between two CUDA events, the fns taken in turns
+    (forward, then backward), so that the card runs each as a stream of
+    launches and in the same conditions as the others."""
+    import torch
+
+    times = {name: [] for name in fns}
+    for r in range(rounds):
+        for name in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
+            fns[name]()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(calls):
+                fns[name]()
+            end.record()
+            end.synchronize()
+            times[name].append(start.elapsed_time(end) / calls)
+    return {name: statistics.median(v) for name, v in times.items()}
+
+
 def with_stroke(params, stroke):
     """The same EnvParams with camera.stroke replaced."""
     cfg = params.cfg
@@ -338,26 +365,12 @@ def box_extent(rk, res, x0, y0, x1, y1, r, nb, b0, xb, gran=16, split=True):
     """(columns, rows) of each live copy's segment bounding box, padded by
     the stroke radius r and clipped to the copy's stamped bands (of `gran`
     rows) and to the frame or its lane block (0 for a copy with no band):
-    the only pixels the copy can light."""
-    import torch
-
-    n_bands, hp, win, nxb, wb = rk._frame_geometry(res, gran, split)
-    h, w = res
-
-    def span(lo, hi, clip_lo, clip_hi):
-        """Integer pixels in [lo, hi] and [clip_lo, clip_hi)."""
-        first = torch.maximum(torch.ceil(lo), clip_lo.float())
-        last = torch.minimum(torch.floor(hi), clip_hi.float() - 1)
-        return torch.clamp_min(last - first + 1, 0)
-
-    row0 = b0 * gran
-    rows = torch.clamp_min(nb, win // gran) * gran
-    cols = span(torch.minimum(x0, x1) - r, torch.maximum(x0, x1) + r,
-                torch.zeros_like(xb), torch.clamp_max(w - xb * rk._XB, wb))
-    ys = span(torch.minimum(y0, y1) - r, torch.maximum(y0, y1) + r, row0,
-              torch.clamp_max(row0 + rows, h))
+    the only pixels the copy can light. The masks kernel's own box
+    (`rk.copy_box` at `rk.box_pad(t)`) adds a one-pixel margin."""
+    xlo, xhi, ylo, yhi = rk.copy_box(x0, y0, x1, y1, r, nb, b0, xb, res,
+                                     gran, split)
     live = (nb > 0).double()
-    return cols.double() * live, ys.double() * live
+    return (xhi - xlo).double() * live, (yhi - ylo).double() * live
 
 
 def bundle_bytes_and_ops(rk, bundle, res, t, out_bytes):
@@ -366,7 +379,8 @@ def bundle_bytes_and_ops(rk, bundle, res, t, out_bytes):
     their copies' six SoA entries read once, the output written once) and
     the float32 operations of the stamp over `box_extent`'s pixels. Pixels
     outside those boxes cannot be lit, so a kernel need not evaluate them
-    (the kernels do: they evaluate the whole window)."""
+    (the masks kernel tests each box with a one-pixel margin; the rank
+    kernel evaluates the whole window)."""
     idx, ax, ay, abx, aby, inv, bw, counts = bundle
     _, hp, _, _, _ = rk._frame_geometry(res)
     env, e, nb, frame, b0, xb = live_copies(rk, idx, bw, counts, res)
@@ -615,6 +629,11 @@ def classes_path(card, rk, fenv, vector, stanley_steering, params, err,
         print(f"  {key}: {times[key]:.4f} ms / {fmt(times[key + '_device'])}")
     print(f"  plain version of the {kernel.NAME} kernel: "
           f"{times['plain']:.4f} ms")
+    b2b = times["back_to_back"]
+    print(f"  {kernel.NAME} kernel alone in back-to-back calls: "
+          f"{b2b['kernel']:.4f} ms; store floor, an output of its size "
+          f"filled: K9's fill {b2b['fill']:.4f} ms, fill_ {b2b['fill_']:.4f} "
+          f"ms (kernel / K9 fill {b2b['kernel'] / b2b['fill']:.2f})")
     if busy_ms is None:
         print(f"{what} step: device busy share not measured (the "
               "profiler trace holds no device time)")
@@ -715,8 +734,11 @@ def check_kernels(rk, ras, fenv, vector, params, dev):
         (4, 32, 200, 64, 160, 2, 200),
         (5, 32, 80, 30, 160, 1, 80),
         # 480x640 (knuffingen's high-res shape): a 61 KB strip, above the
-        # 48 KB default shared-memory limit
+        # 48 KB default shared-memory limit; the masks kernel's 48-row
+        # chunks
         (6, 16, 200, 480, 640, 2, 200),
+        # a width that is not a multiple of 4 (two lane blocks)
+        (7, 16, 200, 100, 150, 3, 200),
     ]
     for seed, b, e, h, w, t, kb in cases:
         bundle = random_bundle(rk, seed, b, e, h, w, t, kb, dev)
@@ -1182,8 +1204,13 @@ def graph_bench(card, rk):
     check(result["checksum"] > 0, "bench observations were not rendered")
     print("bench: " + json.dumps(line))
     print(f"bench: {pbench.N_ENVS} envs x {pbench.CHUNK} replays a repeat, "
-          f"checksum {result['checksum']}; repeats in the order they ran: "
-          + " ".join(f"{r:.1f}" for r in result["rates"]) + " env-steps/s")
+          f"checksum {result['checksum']}; repeats in the order they ran "
+          "(env-steps/s; then the SM clock, memory clock, power draw, "
+          "temperature):")
+    check(len(result["clocks"]) == len(result["rates"]),
+          "a repeat without its clock reading")
+    for rate, clocks in zip(result["rates"], result["clocks"]):
+        print(f"  {rate:.1f}; {clocks}")
 
     graph = result["graph"]
     # the idle share is read from the traced replays' own wall: untraced
@@ -1202,6 +1229,10 @@ def graph_bench(card, rk):
           f"{CHUNK} traced replays")
     for key, ms, count in top:
         print(f"  {ms:.4f} ms/step x{count}: {key}")
+    # once, after the timed repeats and the trace: what enqueuing one
+    # replay costs the host while the card is held busy
+    print(f"bench: the host's own ms per graph.replay() call, the card "
+          f"held busy: {pbench.host_replay_ms(graph.replay):.4f} ms")
     del result, graph
 
     same = pbench.graph_matches_eager(
@@ -1418,6 +1449,17 @@ def stage_times(fenv, vector, rk, params, vstate):
             out[key + "_device"] = device_profile(fn)[0]
     out["plain"] = cuda_ms(lambda: plain(bundle, md.n_layers, res, t),
                            repeats=5, warmup=1)
+    # the kernel alone in back-to-back calls, beside K9's fill and fill_ of
+    # an output of its size: the store floor, timed in turns in this call
+    from tinycarlo_torch.ops import probe_kernels as pk
+
+    floor = torch.empty((n, md.n_layers) + res, dtype=torch.uint8,
+                        device="cuda")
+    out["back_to_back"] = back_to_back_ms({
+        "kernel": lambda: kernel(bundle, md.n_layers, res, t),
+        "fill": lambda: pk.fill_kernel(floor, 0),
+        "fill_": lambda: floor.fill_(0),
+    })
     return out
 
 

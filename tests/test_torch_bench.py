@@ -119,10 +119,12 @@ def _bench_py_keys():
 
 def test_bench_runs_eagerly_on_cpu():
     """`measure(device="cpu")` at 8 envs, 2-step chunks: no graph, at least
-    5 repeats, a checksum > 0, and a JSON line with bench.py's keys plus
+    5 repeats, no clock reading (it is read only on CUDA), a checksum >
+    0, and a JSON line with bench.py's keys plus
     `device`, flagged as the recorded baseline."""
     r = pbench.measure("cpu", n_envs=8, chunk=2, repeats=1)
     assert r["graph"] is None and r["checksum"] > 0
+    assert r["clocks"] == []
     assert len(r["rates"]) == 5 and r["min"] <= r["median"] <= r["max"]
     line = pbench.result_line(r, 8, 1, "cpu")
     assert set(line) == _bench_py_keys() | {"device"}

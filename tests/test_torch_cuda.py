@@ -72,6 +72,41 @@ def test_masks_kernel_matches_plain(t, h, w, kb, out_dtype):
     assert want.sum() > 0 and not want[0].any()
 
 
+# (t, h, w): 480x640 frames cut into row chunks (uint8 48 rows, float32 12),
+# 128x160 float32 in three chunks, and widths that are not multiples of 4
+# or 16 (150 with two lane blocks, 77 with one)
+CHUNK_CASES = [(2, 480, 640), (3, 480, 640), (1, 128, 160), (2, 100, 150),
+               (3, 37, 77)]
+
+
+@pytest.mark.parametrize("t,h,w", CHUNK_CASES)
+@pytest.mark.parametrize("out_dtype", [torch.uint8, torch.float32])
+def test_masks_kernel_chunks_and_empty_layers(t, h, w, out_dtype):
+    """Bit-equal to the plain version where the kernel cuts frames into
+    row chunks and on odd widths, with an env that has no live slot (env
+    0) and a layer no edge belongs to (counts[4+2] == 0 in every env), in
+    the bench's tall-copy and near-plane shapes."""
+    _require_cuda()
+    L, E = 5, 100
+    u0, v0, u1, v1, draw, lay = _segments(t * 11 + w, 24, E, h, w, L, "cuda")
+    lay[lay == 2] = 3
+    u1[:, :5] = u0[:, :5] + 4000.0  # near-plane clipped: thousands of px
+    v1[:, 5:10] = v0[:, 5:10] + 3.0 * h  # tall copies through the frame
+    bundle = rk.compact_env_idx_soa(
+        u0, v0, u1, v1, draw, E * rk._n_xblocks(w), h, t, edge_layer=lay,
+        n_layers=L, w=w,
+    )
+    counts = bundle[-1]
+    assert int(counts[0, 0]) == 0 and int(counts[4 + 2].abs().sum()) == 0
+    got = rk.masks_kernel(bundle, L, (h, w), t, out_dtype=out_dtype)
+    want = rk.rasterize_masks_env_plain(bundle, L, (h, w), t,
+                                        out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert got.dtype == out_dtype and got.shape == (24, L, h, w)
+    assert torch.equal(got, want)
+    assert want.sum() > 0 and not want[0].any() and not want[:, 2].any()
+
+
 def test_packed_entry_launches_kernel():
     """rasterize_masks_packed_soa on CUDA tensors goes through the kernel,
     which checks its inputs and raises instead of falling back."""
@@ -358,16 +393,17 @@ def _probe_case(kernel, plain, shape, dtype, args, offset=False):
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("n", [1, 7, 64])
+@pytest.mark.parametrize("n", [1, 7, 64, 4096])
 def test_probe_kernels_match_plain(n):
     """K8-K10 bit-equal to their plain versions: KK 0, 1, 64 and 512 --
     values that wrap in the int32 -> uint8 cast, values the chain carries
     past an integer (0.9999 in one round, 254.99 in 29 of 64, 99.93 in
     367 of 512), and 16.9998836517334, which a fused multiply-add would
     carry to 17 and the unfused chain leaves at 16.999998 --, uint8 and
-    float32 fills at g = 1, 4, 16 on the bench shape and on an odd-sized,
-    misaligned one, and live masks with an empty, a full and ragged
-    layers."""
+    float32 fills at g = 1, 4, 16 (which change nothing) on the flat and
+    the bench shapes and on an odd-sized, misaligned one, and live masks
+    with an empty, a full and ragged layers; every kernel leaves the
+    bytes around its output alone."""
     _require_cuda()
     frame = (5, 128, 160)
     for kk, v in ((0, 29.0), (1, 300.5), (64, -3.7), (1, 0.9999),
@@ -375,6 +411,7 @@ def test_probe_kernels_match_plain(n):
         _probe_case(pk.ovl_kernel, pk.ovl_plain, (n,) + frame, torch.uint8,
                     (v, kk))
     for shape, dtype, value in (((n, 800, 128), torch.uint8, 200),
+                                ((n,) + frame, torch.uint8, 29),
                                 ((n,) + frame, torch.float32, -1.5),
                                 ((n, 3, 7, 5), torch.uint8, 77),
                                 ((n, 3, 7, 5), torch.float32, 3.25)):

@@ -6,11 +6,18 @@ its counterpart at the same path. The port runs on an NVIDIA GPU:
 - the batched simulation -- map compilation, the kinematic car, the camera
   projection, segment compaction, shaping, auto-reset and the Stanley
   expert;
-- the observations, from two hand-written CUDA kernels: class masks
-  (ops/csrc/masks.cu) and the layer-rank map that the rgb, rgb_planar and
-  rank formats decode (ops/csrc/rank.cu);
+- the observations, from hand-written CUDA kernels under ops/csrc/: class
+  masks (masks.cu), the layer-rank map that the rgb, rgb_planar and rank
+  formats decode (rank.cu), and cv2's ThickLine masks under
+  `camera.stroke: exact` (exact.cu);
 - serving a policy: the tinycar_net combo (models/tinycar_net.py, with the
-  bundled pretrained weights) through train/evaluate.py.
+  bundled pretrained weights) through train/evaluate.py;
+- the benchmarks (benchmarks/): the headline bench, bench.py's step
+  replayed as a CUDA graph, and the rasterizer benchmark, whose older
+  compaction layouts have their own kernels (frame_soa.cu, env_soa.cu,
+  env_seg.cu) and whose output-floor probes theirs (probe_ovl.cu,
+  probe_fill.cu, probe_skip.cu). Nine `.cu` sources share two headers:
+  stamp.cuh (the stamp) and store.cuh (the 16-byte store path).
 
 Entry points take `device=` and default to "cuda"; they raise when no GPU
 is present instead of carrying on on the CPU. Tests pass `device="cpu"`,

@@ -27,7 +27,11 @@ the checksum): the captured step reads them and writes its new values
 back into them, so CHUNK replays chain the steps. Each repeat is CHUNK
 replays ended by `torch.cuda.synchronize()`; the line gives the median
 of the repeats with their min and max, and every repeat's rate, in the
-order they ran, goes to stderr. The respawn rows come from the
+order they ran, goes to stderr beside the card's SM clock, memory clock,
+power draw and temperature (nvidia-smi), read right after the repeat,
+outside its timed window. `host_replay_ms` times the host's own cost of
+one `graph.replay()` call; it is not run between the repeats (chip_smoke.py
+reads it once, after them). The respawn rows come from the
 state's own torch.Generator, which is registered with the graph, so
 each replay draws the rows an eager step would (`graph_matches_eager`
 checks it). Kernels are launched once before capture (warm-up), so the
@@ -59,7 +63,8 @@ from tinycarlo_torch import env as fenv
 from tinycarlo_torch import vector
 from tinycarlo_torch.ops import rasterize_kernels as rk
 from tinycarlo_torch.train.stanley import stanley_steering
-from tinycarlo_torch.utils.helper import card_line, resolve_device
+from tinycarlo_torch.utils.helper import (card_clocks, card_line,
+                                          resolve_device)
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -100,6 +105,10 @@ MAX_EPISODE_STEPS = 1000
 # eager steps before capture: every kernel launched (and its launcher's
 # one-time setup done) outside the capture
 WARMUP = 3
+# host_replay_ms: the replays it times, and the spin that holds the card
+# meanwhile (~0.1 s at the H100's 1.98 GHz, far above 10 launches)
+HOST_PROBE_REPLAYS = 10
+HOST_PROBE_SPIN_CYCLES = 200_000_000
 
 
 def make_body(params: fenv.EnvParams, n_envs: int,
@@ -235,6 +244,27 @@ def graph_matches_eager(params, n_envs: int, steps: int,
             "offsets": (eager_offset, vstate.generator.get_offset())}
 
 
+def host_replay_ms(replay, n: int = HOST_PROBE_REPLAYS) -> float:
+    """The host's ms per `replay()` call with the card held busy by a spin
+    kernel, so that no call waits for the card: what enqueuing one step
+    costs the host. Raises if the spin ended before the calls did (then
+    they may have waited)."""
+    torch.cuda.synchronize()
+    torch.cuda._sleep(HOST_PROBE_SPIN_CYCLES)
+    spun = torch.cuda.Event()
+    spun.record()
+    start = time.perf_counter()
+    for _ in range(n):
+        replay()
+    ms = (time.perf_counter() - start) / n * 1e3
+    held = not spun.query()
+    torch.cuda.synchronize()
+    if not held:
+        raise RuntimeError("the spin kernel ended before the replays were "
+                           "enqueued: raise HOST_PROBE_SPIN_CYCLES")
+    return ms
+
+
 def measure(device="cuda", n_envs: int = N_ENVS, chunk: int = CHUNK,
             repeats: int = REPEATS) -> Dict:
     """bench.py's measure_ours on the port: reset (seed 0), the overflow
@@ -242,7 +272,8 @@ def measure(device="cuda", n_envs: int = N_ENVS, chunk: int = CHUNK,
     chunks of `chunk` steps, each ended by a synchronize. On CUDA the
     step is a replayed graph (`capture`); on the CPU it runs eagerly.
     Returns {"rates" (env-steps/s, in the order the repeats ran),
-    "median", "min", "max",
+    "clocks" (on CUDA, `card_clocks()` read after each repeat; empty on
+    the CPU), "median", "min", "max",
     "checksum", "graph" (None on the CPU), "state", "params"}."""
     device = resolve_device(device)
     params = fenv.make_env_params(CONFIG, device=device)
@@ -277,12 +308,15 @@ def measure(device="cuda", n_envs: int = N_ENVS, chunk: int = CHUNK,
         return checksum
 
     run_chunk()
-    rates = []
+    rates, clocks = [], []
     for _ in range(max(repeats, 5)):
         start = time.perf_counter()
         checksum = run_chunk()
         rates.append(n_envs * chunk / (time.perf_counter() - start))
-    return {"rates": rates, "median": statistics.median(rates),
+        if device.type == "cuda":
+            clocks.append(card_clocks())
+    return {"rates": rates, "clocks": clocks,
+            "median": statistics.median(rates),
             "min": min(rates), "max": max(rates), "checksum": checksum,
             "graph": graph, "state": state, "params": params}
 
@@ -314,8 +348,10 @@ def main(argv=None) -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]
                             ).parse_args(argv)
     result = measure()
-    print("repeats (env-steps/s, in order): "
-          + " ".join(f"{r:.1f}" for r in result["rates"]), file=sys.stderr)
+    print("repeats in order (env-steps/s; then the SM clock, memory clock, "
+          "power draw, temperature):", file=sys.stderr)
+    for rate, clocks in zip(result["rates"], result["clocks"]):
+        print(f"  {rate:.1f}; {clocks}", file=sys.stderr)
     print(json.dumps(result_line(result, N_ENVS, REPEATS, card_line())))
     return 0
 

@@ -37,7 +37,8 @@ the output costs without rasterizing, each through its kernel
 (ops/probe_kernels.py); the number in a mode's name is its parameter:
 `ovl<KK>` (KK float32 multiply-add rounds on a 128 x 128 tile per env,
 then a uint8 fill of the env's (5, 128, 160) block), `dmaflat[g]` (a
-uint8 fill of (N, 800, 128), g envs per block, default 1), `dmaf32` (a
+uint8 fill of (N, 800, 128); g, default 1, is the TPU kernel's envs per
+grid step, which the port's fill takes and ignores), `dmaf32` (a
 float32 fill of (N, 5, 128, 160)), `dma[g]` (a uint8 fill of (N, 5, 128,
 160)), `dskip` (a fill of the (env, layer) frames of an (N * 5, 128, 256)
 uint8 output that the reset draws in; the output is zeroed once, outside

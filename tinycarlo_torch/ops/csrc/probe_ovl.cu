@@ -22,9 +22,10 @@
 // shared memory, the 16384 chains are opaque to the compiler and cannot
 // fold into one. Each thread then runs the KK rounds on its 64 independent
 // chains, stores them back, and after a second barrier the block reads
-// tile[0, 0] and fills the env's bytes in 16-byte vector stores (probe.cuh
-// `fill_range`). Other blocks on the SM overlap their chains with this
-// block's stores; three 64 KB tiles fit an SM.
+// tile[0, 0] and fills the env's bytes in 16-byte streaming vector stores
+// (store.cuh `fill_span`, the fill probe's path). Other blocks on the SM
+// overlap their chains with this block's stores; three 64 KB tiles fit an
+// SM.
 //
 // Bound on the H100 at the benchmark's shape (N = 4096, 5 x 128 x 160):
 // the output written once, 419.4 MB -> 0.1252 ms at 3.35 TB/s, against
@@ -32,11 +33,13 @@
 // 0.128 ms; KK = 512: 1.03 ms). The peak counts a fused multiply-add as
 // two operations; with -fmad=false each of them is an instruction, so the
 // chain runs at most at half that peak.
-#include "probe.cuh"
+#include "store.cuh"
 
 namespace {
 
-using namespace tc_probe;
+using namespace tc;
+
+constexpr int kThreads = 256;
 
 constexpr int kTile = 128 * 128;
 constexpr int kPerThread = kTile / kThreads;
@@ -60,7 +63,8 @@ ovl_kernel(uint8_t* __restrict__ out, long long env_bytes, int kk, float v) {
   __syncthreads();
   const uint32_t u = static_cast<uint8_t>(static_cast<int>(sc[0]));
   const long long env = blockIdx.x;
-  fill_range(out, env * env_bytes, (env + 1) * env_bytes, u * 0x01010101u);
+  fill_span(out, env * env_bytes, (env + 1) * env_bytes, u * 0x01010101u,
+            threadIdx.x, kThreads);
 }
 
 }  // namespace

@@ -15,20 +15,22 @@
 //
 // Design. One block of 256 threads per frame, N*L blocks; a block whose
 // frame is dead reads its live entry and exits, a live one stores the
-// frame in 16-byte vector stores (probe.cuh `fill_range`). The TPU's
-// staging buffers and semaphores are its way of issuing the copies; plain
-// stores issue them here. TMA bulk stores from shared memory are later
-// work.
+// frame in 16-byte streaming vector stores (store.cuh `fill_span`, the
+// fill probe's path). The TPU's staging buffers and semaphores are its way
+// of issuing the copies; plain stores issue them here (TMA bulk copies
+// from shared memory measured slower for the fill probe).
 //
 // Bound on the H100 at the benchmark's shape (N = 4096, L = 5, 128 x 256):
 // live (L, N) int32 read once, 80 KB, and the live frames written once,
 // 32,768 B each: 671.1 MB with every frame live (`dskipall`) -> 0.2003 ms
 // at 3.35 TB/s; `dskip` writes only the frames its reset draws.
-#include "probe.cuh"
+#include "store.cuh"
 
 namespace {
 
-using namespace tc_probe;
+using namespace tc;
+
+constexpr int kThreads = 256;
 
 __global__ void __launch_bounds__(kThreads)
 skip_kernel(uint8_t* __restrict__ out, const int32_t* __restrict__ live,
@@ -37,7 +39,8 @@ skip_kernel(uint8_t* __restrict__ out, const int32_t* __restrict__ live,
   const long long env = f / n_layers;
   const long long l = f - env * n_layers;
   if (live[l * n_envs + env] <= 0) return;
-  fill_range(out, f * frame_bytes, (f + 1) * frame_bytes, word);
+  fill_span(out, f * frame_bytes, (f + 1) * frame_bytes, word, threadIdx.x,
+            kThreads);
 }
 
 }  // namespace

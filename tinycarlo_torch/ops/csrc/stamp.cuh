@@ -182,6 +182,60 @@ __device__ __forceinline__ int list_frame_slots(const Geometry& g,
   return *n_list;
 }
 
+// ---- The masks kernel's box-clipped stamps (masks.cu) ----
+//
+// The pixels a fast-stroke copy can light: its segment's bounding box,
+// widened by `pad` (the stroke's reach, sqrt(max(lat2, cap2)), 0 for the
+// thickness-1 Bresenham, plus kBoxMargin), clipped to the rows it stamps
+// (its window and tail bands, rows [b0*16, b0*16 + max(nb, win/16)*16)
+// of its frame, and [0, h)) and to the lanes of its lane block that the
+// frame has ([0, min(wb, w - xb*128)) block-local). A lit pixel lies
+// within the reach of the segment: `window_hit`'s clamped t keeps t*ab
+// between 0 and ab, and d2 <= r2 bounds |dx| and |dy| by the reach; the
+// Bresenham's step and probe stay within [0, ab]. Float rounding moves
+// a computed distance by far less than the margin (below 0.3 px at the
+// compaction's 1e6 px clamp). rasterize_kernels.copy_box is the same rule
+// in PyTorch, and tests/test_torch_masks_box.py checks that no lit pixel
+// of the plain version falls outside it.
+constexpr float kBoxMargin = 1.f;
+
+struct CopyBox {
+  int x0, x1;  // block-local lanes [x0, x1)
+  int y0, y1;  // frame rows [y0, y1)
+  int xoff;    // the lane block's first output lane, xb*128
+  int wrow0;   // the window's first frame row, b0*16
+  int y0s;     // the window's first stacked strip row, rowband*16
+};
+
+// The box of a copy with band word `word` and payload (ax, ay, abx, aby):
+// empty (x1 <= x0 or y1 <= y0) when it lights nothing here.
+__device__ __forceinline__ CopyBox copy_box(const Geometry& g, int word,
+                                            float ax, float ay, float abx,
+                                            float aby, float pad) {
+  CopyBox b;
+  const int nb = word & kNbMask;
+  const int rowband = word >> kNbShift;
+  const int frame = rowband / g.n_bands;
+  b.wrow0 = (rowband - frame * g.n_bands) * kGran;
+  b.y0s = rowband * kGran;
+  b.xoff = (frame % g.nxb) * kXB;
+  const int rows = max(nb, g.win / kGran) * kGran;
+  // the segment in block-local lanes and frame rows
+  const float ayf = ay - (float)(frame * g.hp);
+  const float bx = ax + abx, by = ayf + aby;
+  const float x0 = fmaxf(ceilf(fminf(ax, bx) - pad), 0.f);
+  const float x1 = fminf(floorf(fmaxf(ax, bx) + pad) + 1.f,
+                         (float)min(g.wb, g.w - b.xoff));
+  const float y0 = fmaxf(ceilf(fminf(ayf, by) - pad), (float)b.wrow0);
+  const float y1 = fminf(floorf(fmaxf(ayf, by) + pad) + 1.f,
+                         (float)min(b.wrow0 + rows, g.h));
+  b.x0 = (int)x0;
+  b.x1 = x1 > x0 ? (int)x1 : b.x0;
+  b.y0 = (int)y0;
+  b.y1 = y1 > y0 ? (int)y1 : b.y0;
+  return b;
+}
+
 // How a strip byte becomes an output element: a mask's 0/255 or 0/1, or
 // the raw byte (a rank).
 struct MaskU8 {

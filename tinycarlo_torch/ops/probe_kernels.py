@@ -114,8 +114,9 @@ class OvlKernel(_ProbeKernel):
 
 class FillKernel(_ProbeKernel):
     """K9's wrapper: `ops/csrc/probe_fill.cu` on a CUDA output, `fill_plain`
-    on a CPU one. out: (N, ...) uint8 or float32; `group` envs per block
-    (the TPU's envs per grid step)."""
+    on a CPU one. out: (N, ...) uint8 or float32; `group`, the TPU's envs
+    per grid step, must be >= 1 and changes nothing (the kernel's grid
+    follows the output's bytes)."""
 
     NAME = "probe_fill"
     SYMBOL = "tc_probe_fill_launch"

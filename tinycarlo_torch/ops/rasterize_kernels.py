@@ -813,6 +813,50 @@ def _window_hits(bands, payload, wb: int, gran: int, win: int, stroke,
         yield env, frame, row, hit
 
 
+# The masks kernel's box margin around the stroke's reach (kBoxMargin in
+# ops/csrc/stamp.cuh).
+_BOX_MARGIN = 1.0
+
+
+def box_pad(thickness: int) -> float:
+    """The masks kernel's box padding at a line thickness: the fast
+    stroke's reach, sqrt(max(lat2, cap2)) in float32 (0 for the
+    thickness-1 Bresenham), plus `_BOX_MARGIN`, as masks.cu computes it."""
+    stroke = _stroke_params(thickness)
+    if stroke[0] == "bres":
+        return _BOX_MARGIN
+    r2 = torch.tensor(max(stroke[1], stroke[2]), dtype=torch.float32)
+    return float(torch.sqrt(r2) + _BOX_MARGIN)
+
+
+def copy_box(x0, y0, x1, y1, pad: float, nb, b0, xb,
+             resolution: Tuple[int, int], gran: int = _GRAN,
+             split: bool = True):
+    """The pixels a copy can light, by the rule of the masks kernel's
+    stamps (ops/csrc/stamp.cuh `copy_box`): its segment (x0, y0)-(x1, y1)
+    -- lanes of its lane block `xb`, rows of its frame, float32 -- widened
+    by `pad`, clipped to the rows it stamps (its window and tail bands,
+    [b0*gran, b0*gran + max(nb, win/gran)*gran), and [0, h)) and to its
+    block's lanes that the frame has ([0, min(wb, w - xb*128))).
+
+    With pad = `box_pad(t)` it is the kernel's box (the same float32
+    operations); with the bare stroke radius it is the least box, which
+    chip_smoke.py's bounds count. Returns float (xlo, xhi, ylo, yhi) of
+    integer values, half-open, hi == lo where the box is empty."""
+    _, _, win, _, wb = _frame_geometry(resolution, gran, split)
+    h, w = resolution
+    row0 = b0 * gran
+    rows = torch.clamp_min(nb, win // gran) * gran
+    xlim = torch.clamp_max(w - xb * _XB, wb).float()
+    xlo = torch.clamp_min(torch.ceil(torch.minimum(x0, x1) - pad), 0.0)
+    xhi = torch.minimum(torch.floor(torch.maximum(x0, x1) + pad) + 1.0, xlim)
+    ylo = torch.maximum(torch.ceil(torch.minimum(y0, y1) - pad),
+                        row0.float())
+    yhi = torch.minimum(torch.floor(torch.maximum(y0, y1) + pad) + 1.0,
+                        torch.clamp_max(row0 + rows, h).float())
+    return xlo, torch.maximum(xhi, xlo), ylo, torch.maximum(yhi, ylo)
+
+
 def _plain_hits(bundle, resolution: Tuple[int, int], thickness: int):
     """The stamps of the masks and rank kernels, as `_window_hits` yields
     them, from a `compact_env_idx_soa` bundle."""

@@ -7,7 +7,8 @@ CrashTermination), same maneuver map and metrics dict (total_reward,
 cte_avg/var on |cte|, heading_error_avg/var, terminations, steps_per_s,
 positions). The `episodes` run as one batch through `vector.reset` /
 `vector.step`; each step is eager PyTorch driven from a Python loop (the
-JAX package scans a jitted body; a CUDA graph of the step is ROADMAP M9).
+JAX package scans a jitted body). The headline bench replays its step as
+a CUDA graph (benchmarks/bench.py); `evaluate` does not yet.
 `steps_per_s` counts env-steps, policy included, over the wall time of
 the rollout, which ends in `torch.cuda.synchronize()` on the card.
 """

@@ -102,10 +102,20 @@ def bound(n_bytes: int, n_ops: int, peak_ops: float = PEAK_F32_PER_S
                                  else "operations"), t_bytes, t_ops
 
 
-def card_line() -> str:
-    """nvidia-smi's name and power limit of the card."""
+def _smi(query: str) -> str:
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def card_line() -> str:
+    """nvidia-smi's name and power limit of the card."""
+    return _smi("name,power.limit")
+
+
+def card_clocks() -> str:
+    """nvidia-smi's SM clock, memory clock, power draw and temperature of
+    the card, as it reads them now."""
+    return _smi("clocks.sm,clocks.mem,power.draw,temperature.gpu")
