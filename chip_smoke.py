@@ -64,7 +64,7 @@ any failed check:
    JSON line (bench.py's keys and `device`) and every repeat's rate in
    the order the repeats ran, each with the card's SM clock, memory
    clock, power draw and temperature read after it, the masks kernel
-   launched once during capture, a profiler trace of a replayed chunk
+   launched once during capture, a profiler trace of TRACED (20) replays
    holding one masks kernel record a step (and the device's idle share),
    then once the host's ms per replay call (replays enqueued while a spin
    kernel holds the card), and 8
@@ -73,7 +73,9 @@ any failed check:
    eager steps' rows and advance the generator as far).
 9. exact classes: the same workload with camera.stroke: exact (cv2's
    ThickLine stroke, the exact kernel): env-steps/s, per-stage ms, the
-   device idle share and peak memory; exact-kernel launches equal to the
+   device idle share and peak memory; the exact kernel alone and in
+   back-to-back calls beside its float32 output and the store floor,
+   as phase 7 times the masks kernel; exact-kernel launches equal to the
    renders and no masks-kernel launch; a small rollout against the CPU
    port (frames equal wherever the two devices' exact bundles are); and a
    sample of the card's exact frames against the port's
@@ -88,7 +90,9 @@ any failed check:
       ~30 s);
    b. 4096 episodes of 100 steps, repeated: env-steps/s with the policy,
       per-stage ms, the device idle share and the peak memory; the rank
-      kernel's launch count must equal the renders;
+      kernel's launch count must equal the renders; the rank kernel alone
+      and in back-to-back calls beside K9's fill and `fill_` of its
+      output's size (the store floor);
    c. 8 envs x 20 combo-driven steps on the card and on the CPU port.
 11. exact serving: the same config with camera.stroke: exact, frames from
    the exact kernel's masks (the rank kernel is not launched):
@@ -100,10 +104,14 @@ any failed check:
       to the renders, the device idle share;
    c. 8 envs x 20 combo-driven steps on the card and on the CPU port
       (frames equal wherever the two devices' exact bundles are).
-12. results: the `kernels` JSON line (K1-K10), the card line and, last,
+12. 480x640: the masks, rank and exact kernels (the exact kernel also in
+   float32) on random 512-env bundles at BASELINE config 3's frame size
+   and batch, each equal to its plain version and alone (CUDA events,
+   median of 20) beside its bound and the store floor.
+13. results: the `kernels` JSON line (K1-K10), the card line and, last,
    the `ok` JSON line.
 
-Phases 4, 6 and 8 print their seconds.
+Every phase prints its seconds.
 
 Every time is measured on the card in this run (CUDA events, or host
 clocks around work that ends in torch.cuda.synchronize()).
@@ -156,6 +164,8 @@ REPEATS = 5
 # whole run fits its time
 FAST_REPEATS = 3
 WARMUP = 10
+# replays of the bench's graph in its profiler trace
+TRACED = 20
 SPEED, K = 0.5, 5.0  # bench.py:64
 
 # the serving path: the example's config and protocol
@@ -189,24 +199,24 @@ ORACLE_ENVS = 16
 # residual 3, its corrections 4, probe, target 2, range and match tests 3,
 # the point test 1.
 OPS_PER_PIXEL = {"split": 18, "bres": 29}
-# int32 operations of the exact stamp (exact.cu exact_hit) that the
-# function needs, each counted where it must be done: once per pixel if it
-# depends on the lane, once per box row if only on the row, once per copy
-# if only on the copy's flags (see exact_bytes_and_ops).
-# Per pixel: the fill span's two lane tests and two ands; each cap's
-# |xi - cx| (2), compare, or; each accepted edge's far-dot lane compare,
-# and, or, and its DDA -- x-major: k, the multiply, add and shift, two
-# range tests, the minor compare, two ands and the or (10); y-major: the
-# lane compare, and, or (3).
-EXACT_PIXEL_OPS = {"fill": 4, "cap": 4, "far": 3, "x_major": 10,
-                   "y_major": 3}
+# int32 operations of the exact stamp (exact.cu `ExactCopies::stamp`) that
+# the function needs, each counted where it must be done: once per box row
+# if it depends on the row, once per box column if on the column, once per
+# copy if only on the copy's flags (see exact_bytes_and_ops). A lit pixel
+# of the fill span, a cap, a y-major edge or a far dot follows from its
+# row's values and costs only its store (the bytes); a pixel of an x-major
+# edge from its column's.
 # Per row: the fill span's ya, each chain's row test, offset and
 # multiply-add (4), min, max, two rounding adds and shifts, the ymin/ystop
-# tests and their and (20); each cap's |yi - cy| (2), table bound and read
-# (4); each accepted edge's far-dot row compare (1) and, y-major, its k,
-# multiply, add, shift, two range tests and and (7).
-EXACT_ROW_OPS = {"fill": 20, "cap": 4, "far": 1, "x_major": 0,
+# tests and their and (20); each cap's |yi - cy| (2), table bound and read,
+# the span's two ends (6); each accepted edge's far-dot row compare (1)
+# and, y-major, its k, multiply, add, shift, two range tests and and (7).
+EXACT_ROW_OPS = {"fill": 20, "cap": 6, "far": 1, "x_major": 0,
                  "y_major": 7}
+# Per column: each accepted x-major edge's k, multiply, add, shift, two
+# range tests, two row compares and their ands (10).
+EXACT_COLUMN_OPS = {"fill": 0, "cap": 0, "far": 0, "x_major": 10,
+                    "y_major": 0}
 # Per copy: the fill flag test, each edge's accept and major bits (shift,
 # and each).
 EXACT_COPY_OPS = 1 + 4 * 4
@@ -259,6 +269,18 @@ def back_to_back_ms(fns, calls=30, rounds=6):
             end.synchronize()
             times[name].append(start.elapsed_time(end) / calls)
     return {name: statistics.median(v) for name, v in times.items()}
+
+
+class PhaseClock:
+    """Prints each phase's seconds as it ends."""
+
+    def __init__(self):
+        self.start = time.perf_counter()
+
+    def done(self, name):
+        now = time.perf_counter()
+        print(f"{name}: {now - self.start:.1f} s")
+        self.start = now
 
 
 def with_stroke(params, stroke):
@@ -399,8 +421,8 @@ def exact_bytes_and_ops(rk, bundle, res, t, out_bytes):
     counts rows, the live slots' idx entries and their copies' 30 int32
     fields read once and the output written once; int32 operations of the
     exact stamp over `box_extent`, the boxes spanning the clipped integer
-    endpoints (the cap fields) padded by the stroke's extent -- per pixel,
-    per box row and per copy as EXACT_PIXEL_OPS, EXACT_ROW_OPS and
+    endpoints (the cap fields) padded by the stroke's extent -- per box
+    row, per box column and per copy as EXACT_ROW_OPS, EXACT_COLUMN_OPS and
     EXACT_COPY_OPS count them, for the parts each copy's flags switch on
     (the fill span, each accepted ring edge as x- or y-major; both caps)."""
     import torch
@@ -426,7 +448,7 @@ def exact_bytes_and_ops(rk, bundle, res, t, out_bytes):
                 x_major == 1, ops["x_major"], ops["y_major"]))
         return n.double()
 
-    n_ops = (cols * rows * per_copy(EXACT_PIXEL_OPS)
+    n_ops = (cols * per_copy(EXACT_COLUMN_OPS)
              + rows * per_copy(EXACT_ROW_OPS)
              + (rows > 0) * EXACT_COPY_OPS).sum().item()
     n_in = counts.numel() * 4 + int(env.numel()) * (4 + rk.EXACT_FIELDS * 4)
@@ -513,6 +535,8 @@ def main():
     from tinycarlo_torch.ops._build import libraries
     from tinycarlo_torch.train.stanley import stanley_steering
 
+    clock = PhaseClock()
+
     # ---- 2. build ----------------------------------------------------------
     libraries.build()
     print(f"build: {libraries.build_seconds:.2f} s "
@@ -521,6 +545,7 @@ def main():
         for line in log.splitlines():
             if "registers" in line or "smem" in line or "spill" in line:
                 print(f"  {src}: {line.strip()}")
+    clock.done("build")
 
     # ---- 3. kernels against their plain versions ---------------------------
     params = fenv.make_env_params(CONFIG)
@@ -528,38 +553,39 @@ def main():
     max_err, rank_err = check_kernels(rk, ras, fenv, vector, params, "cuda")
     exact_err = check_exact_kernels(rk, fenv, vector, params_exact, "cuda")
     soa_errs = check_soa_kernels(rk, "cuda")
+    clock.done("kernels")
 
     # ---- 4. probe kernels against their plain versions ---------------------
-    phase = time.perf_counter()
     probe_errs = check_probe_kernels(pk, "cuda")
-    print(f"probe kernels: {time.perf_counter() - phase:.1f} s")
+    clock.done("probe kernels")
 
     # ---- 5. rasterizer benchmark --------------------------------------------
     from tinycarlo_torch.benchmarks import rasterize_bench as rb
 
     inputs = rb.Inputs("cuda")
     soa_entries = rasterizer_bench(card, rk, soa_errs, inputs)
+    clock.done("rasterizer benchmark")
 
     # ---- 6. probe modes -------------------------------------------------------
-    phase = time.perf_counter()
     probe_entries = probe_modes(card, pk, inputs, probe_errs)
     del inputs
-    print(f"probe modes: {time.perf_counter() - phase:.1f} s")
+    clock.done("probe modes")
 
     # ---- 7. main path --------------------------------------------------------
     kernels = [classes_path(card, rk, fenv, vector, stanley_steering, params,
                             max_err, FAST_REPEATS)]
     kernels[0].pop("run")
+    clock.done("main path")
 
     # ---- 8. bench, replayed as a CUDA graph ----------------------------------
-    phase = time.perf_counter()
     graph_bench(card, rk)
-    print(f"bench (CUDA graph): {time.perf_counter() - phase:.1f} s")
+    clock.done("bench (CUDA graph)")
 
     # ---- 9. exact classes ----------------------------------------------------
     exact_entry = classes_path(card, rk, fenv, vector, stanley_steering,
                                params_exact, exact_err, REPEATS)
     check_exact_oracle(fenv, rk, params_exact, exact_entry.pop("run"))
+    clock.done("exact classes")
 
     # ---- 10, 11. serving, fast and exact -------------------------------------
     # the protocols' three maneuvers run at once, one worker process each:
@@ -567,11 +593,17 @@ def main():
     with multiprocessing.get_context("spawn").Pool(
             3, initializer=protocol_worker_init) as pool:
         kernels.append(serve(card, rank_err, pool))
+        clock.done("serving")
         kernels.append(exact_entry)
         serve_exact(card, pool)
+        clock.done("exact serving")
     kernels += soa_entries + probe_entries
 
-    # ---- 12. results ---------------------------------------------------------
+    # ---- 12. the masks, rank and exact kernels at 480x640 -------------------
+    kernels_480x640(card, rk)
+    clock.done("480x640 kernels")
+
+    # ---- 13. results --------------------------------------------------------
     print(f"chip_smoke: {time.perf_counter() - start:.1f} s after the "
           f"device check")
     print(json.dumps({"kernels": kernels}))
@@ -634,6 +666,9 @@ def classes_path(card, rk, fenv, vector, stanley_steering, params, err,
           f"{b2b['kernel']:.4f} ms; store floor, an output of its size "
           f"filled: K9's fill {b2b['fill']:.4f} ms, fill_ {b2b['fill_']:.4f} "
           f"ms (kernel / K9 fill {b2b['kernel'] / b2b['fill']:.2f})")
+    if "float32" in b2b:
+        print(f"  its float32 output {b2b['float32']:.4f} ms back to back "
+              f"({b2b['float32'] / b2b['kernel']:.2f} x uint8)")
     if busy_ms is None:
         print(f"{what} step: device busy share not measured (the "
               "profiler trace holds no device time)")
@@ -790,11 +825,13 @@ def check_exact_kernels(rk, fenv, vector, params_exact, dev):
             (h, w), t))
     real, _ = vector.reset(params_exact, 384, seed=1, render=False)
     bundle = bench_bundle(fenv, rk, params_exact, real.env)
+    geometry = (params_exact.map_data.n_layers,
+                tuple(params_exact.cfg.camera.resolution),
+                params_exact.cfg.camera.line_thickness)
     err = max(err, kernel_vs_plain(
         rk.exact_kernel, rk.rasterize_masks_exact_env_plain, bundle,
-        params_exact.map_data.n_layers,
-        tuple(params_exact.cfg.camera.resolution),
-        params_exact.cfg.camera.line_thickness))
+        *geometry))
+
     print(f"kernels: exact kernel equal to its plain version on "
           f"{len(cases)} random exact bundles (t = 2, 3, 5; 48x96, "
           f"128x160, 480x640) and 384 real envs, uint8 and float32 (0/1)")
@@ -1215,18 +1252,27 @@ def graph_bench(card, rk):
     graph = result["graph"]
     # the idle share is read from the traced replays' own wall: untraced
     # replays run at another pace than traced ones
+    # traces of 100 replays (~95k kernel records) have come back with 2-5%
+    # of every kernel's records missing (ROADMAP F2): TRACED replays keep
+    # the trace small
     busy_ms, top, by_name, traced_ms = device_profile(graph.replay,
-                                                      calls=CHUNK)
+                                                      calls=TRACED)
     masks_ms = kernel_device_ms(by_name, "masks_kernel")
+    if busy_ms is None or masks_ms is None:
+        held = {key[:60]: count for key, (_, count) in by_name.items()
+                if "masks" in key}
+        print(f"bench: the trace of {TRACED} replays: device busy {busy_ms} "
+              f"ms, masks kernel records a step {held}, "
+              f"{sum(c for _, c in by_name.values()):g} records a step")
     check(busy_ms is not None and masks_ms is not None, "a trace of "
-          f"{CHUNK} replays does not hold one masks kernel record a step")
+          f"{TRACED} replays does not hold one masks kernel record a step")
     wall_ms = 1e3 * pbench.N_ENVS / result["median"]
     print(f"bench step (graph replay) on {card}: wall {wall_ms:.4f} ms; "
           f"traced: wall {traced_ms:.4f} ms, device busy {busy_ms:.4f} ms, "
           f"idle share {1 - busy_ms / traced_ms:.4f}, "
           f"{sum(c for _, c in by_name.values()):g} kernel records a step; "
           f"masks kernel {masks_ms:.4f} ms device, one record a step over "
-          f"{CHUNK} traced replays")
+          f"{TRACED} traced replays")
     for key, ms, count in top:
         print(f"  {ms:.4f} ms/step x{count}: {key}")
     # once, after the timed repeats and the trace: what enqueuing one
@@ -1455,11 +1501,15 @@ def stage_times(fenv, vector, rk, params, vstate):
 
     floor = torch.empty((n, md.n_layers) + res, dtype=torch.uint8,
                         device="cuda")
-    out["back_to_back"] = back_to_back_ms({
+    fns = {
         "kernel": lambda: kernel(bundle, md.n_layers, res, t),
         "fill": lambda: pk.fill_kernel(floor, 0),
         "fill_": lambda: floor.fill_(0),
-    })
+    }
+    if kernel is rk.exact_kernel:  # beside its float32 output
+        fns["float32"] = lambda: kernel(bundle, md.n_layers, res, t,
+                                        out_dtype=torch.float32)
+    out["back_to_back"] = back_to_back_ms(fns)
     return out
 
 
@@ -1750,6 +1800,11 @@ def serve(card, rank_err, pool):
                 "policy", "step"):
         print(f"  {key}: {times[key]:.4f} ms / {fmt(times[key + '_device'])}")
     print(f"  plain version of the rank kernel: {times['plain']:.4f} ms")
+    b2b = times["back_to_back"]
+    print(f"  rank kernel alone in back-to-back calls: {b2b['kernel']:.4f} "
+          f"ms; store floor, an output of its size filled: K9's fill "
+          f"{b2b['fill']:.4f} ms, fill_ {b2b['fill_']:.4f} ms (kernel / K9 "
+          f"fill {b2b['kernel'] / b2b['fill']:.2f})")
     if busy_ms is None:
         print("serving step: device busy share not measured (the profiler "
               "trace holds no device time)")
@@ -1855,6 +1910,15 @@ def serving_stage_times(fenv, vector, rk, ras, params, vstate, act, stack,
             out[key + "_device"] = device_profile(fn)[0]
     out["plain"] = cuda_ms(lambda: rk.rasterize_rank_env_plain(
         bundle, md.n_layers, res, t), repeats=5, warmup=1)
+    # the kernel alone in back-to-back calls, beside K9's fill and fill_ of
+    # an output of its size (the store floor), as stage_times does
+    from tinycarlo_torch.ops import probe_kernels as pk
+
+    out["back_to_back"] = back_to_back_ms({
+        "kernel": lambda: rk.rank_kernel(bundle, md.n_layers, res, t),
+        "fill": lambda: pk.fill_kernel(rank, 0),
+        "fill_": lambda: rank.fill_(0),
+    })
     return out
 
 
@@ -1927,6 +1991,61 @@ def compare_serving_with_cpu(fenv, vector, params_gpu, act_gpu):
           f"{int((~moved).sum())} equal frames and {err_moved:.2e} on "
           f"{int(moved.sum())} differing ones; rgb frames differ on "
           f"{frac:.4%} of pixels{bundle_note}")
+
+
+# BASELINE config 3's frame and batch (benchmarks/baseline_configs.py:
+# 84-163): 480x640 at 512 envs; random segments (`segments`) stand in for
+# knuffingen's, whose path is not ported yet
+BIG_ENVS, BIG_EDGES, BIG_RES = 512, 200, (480, 640)
+
+
+def kernels_480x640(card, rk):
+    """Phase 12: the masks, rank and exact kernels alone (CUDA events,
+    median of 20) at 480x640 on random 512-env bundles (t = 2; 48-row
+    chunks), the exact kernel in uint8 and float32, each beside its bound
+    and the store floor (`fill_` of its output), each output equal to its
+    plain version's on the same bundle."""
+    import torch
+
+    t, (h, w) = 2, BIG_RES
+    L = 5
+    fast = random_bundle(rk, 41, BIG_ENVS, BIG_EDGES, h, w, t, BIG_EDGES,
+                         "cuda")
+    exact = random_bundle(rk, 42, BIG_ENVS, BIG_EDGES, h, w, t, BIG_EDGES,
+                          "cuda", exact=True)
+    runs = [
+        ("masks", lambda: rk.masks_kernel(fast, L, BIG_RES, t),
+         lambda: rk.rasterize_masks_env_plain(fast, L, BIG_RES, t),
+         lambda n: bundle_bytes_and_ops(rk, fast, BIG_RES, t, n),
+         PEAK_F32_PER_S),
+        ("rank", lambda: rk.rank_kernel(fast, L, BIG_RES, t),
+         lambda: rk.rasterize_rank_env_plain(fast, L, BIG_RES, t),
+         lambda n: bundle_bytes_and_ops(rk, fast, BIG_RES, t, n),
+         PEAK_F32_PER_S),
+    ]
+    for dt in (torch.uint8, torch.float32):
+        runs.append((
+            f"exact {str(dt).split('.')[-1]}",
+            lambda dt=dt: rk.exact_kernel(exact, L, BIG_RES, t, out_dtype=dt),
+            lambda dt=dt: rk.rasterize_masks_exact_env_plain(
+                exact, L, BIG_RES, t, out_dtype=dt),
+            lambda n: exact_bytes_and_ops(rk, exact, BIG_RES, t, n),
+            PEAK_I32_PER_S))
+    for name, fn, plain, work, peak in runs:
+        out = fn()
+        check(torch.equal(out, plain()) and bool(out.any()),
+              f"{name} kernel at 480x640 differs from its plain version or "
+              "draws nothing")
+        n_bytes, n_ops = work(out.numel() * out.element_size())
+        bound_ms, by, t_bytes, t_ops = bound(n_bytes, n_ops, peak)
+        ms = cuda_ms(fn, repeats=20)
+        floor_ms = cuda_ms(lambda: out.fill_(0), repeats=20)
+        print(f"{name} kernel at 480x640, {BIG_ENVS} envs, t={t} on {card}: "
+              f"{ms:.4f} ms; store floor (fill_ of its "
+              f"{out.numel() * out.element_size() / 1e6:.1f} MB) "
+              f"{floor_ms:.4f} ms; bound {n_bytes / 1e6:.1f} MB -> "
+              f"{t_bytes:.4f} ms, {n_ops / 1e9:.2f} GOP -> {t_ops:.4f} ms: "
+              f"{by} bind")
 
 
 if __name__ == "__main__":

@@ -258,6 +258,100 @@ def test_exact_packed_entry_launches_kernel():
         rk.exact_kernel((idx, fields[:-1], counts), L, (h, w), 2)
 
 
+def _env_block_segments(seed, b, E, h, w, L, exact):
+    """Segments for the one-block-per-env designs of the exact and rank
+    kernels: env 0 draws nothing, env 1 draws only its layer L-1 edges (an
+    env with one live layer), and every env has tall copies through the
+    frame and near-plane clipped ones thousands of pixels long; under
+    `exact` also `_exact_bundle`'s deep-clipped, horizontal and vertical
+    segments."""
+    u0, v0, u1, v1, draw, lay = _segments(seed, b, E, h, w, L, "cuda")
+    if exact:
+        rng = np.random.default_rng(seed + 1)
+        deep = torch.tensor(rng.random((b, E)) < 0.3, device="cuda")
+        far = [torch.tensor(rng.uniform(-400, s + 400, (b, E)),
+                            dtype=torch.float32, device="cuda")
+               for s in (w, h, w, h)]
+        u0, v0, u1, v1 = (torch.where(deep, f, x)
+                          for f, x in zip(far, (u0, v0, u1, v1)))
+        v1[:, 1:4] = v0[:, 1:4]  # horizontal
+        u1[:, 4:7] = u0[:, 4:7]  # vertical
+    u1[:, 10:13] = u0[:, 10:13] + 4000.0  # near-plane clipped
+    v1[:, 13:16] = v0[:, 13:16] + 3.0 * h  # tall copies through the frame
+    draw[1:, :16] = True
+    draw[1] &= lay == L - 1
+    return u0, v0, u1, v1, draw, lay
+
+
+def _one_live_layer(counts, L):
+    """Env 0 has no live slot and env 1 live copies in layer L-1 only."""
+    assert int(counts[0, 0]) == 0 and int(counts[0, 1]) > 0
+    assert [int(counts[4 + l, 1]) > 0 for l in range(L)] == (
+        [False] * (L - 1) + [True])
+
+
+# (t, h, w, k per block) where the one-block-per-env designs branch: the
+# whole 128x160 frame in one chunk, 48-row chunks at 480x640 (and for
+# float32), a width with a ragged 16-byte phase (100x150), and an
+# oversubscribed budget
+ENV_BLOCK_CASES = [(2, 128, 160, 100), (3, 480, 640, 100),
+                   (2, 100, 150, 100), (5, 128, 160, 6)]
+
+
+@pytest.mark.parametrize("t,h,w,kb", ENV_BLOCK_CASES)
+@pytest.mark.parametrize("out_dtype", [torch.uint8, torch.float32])
+def test_exact_kernel_env_blocks(t, h, w, kb, out_dtype):
+    """The exact kernel bit-equal to its plain version where its chunks,
+    boxes and units branch, with an empty env and a one-layer env."""
+    _require_cuda()
+    L, E, b = 5, 100, 24
+    segs = _env_block_segments(t * 13 + w, b, E, h, w, L, exact=True)
+    bundle = rk.compact_env_exact_soa(
+        *segs[:5], kb * rk._n_xblocks(w), h, t, edge_layer=segs[5],
+        n_layers=L, w=w,
+    )
+    counts = bundle[-1]
+    _one_live_layer(counts, L)
+    if kb < E:
+        assert int(counts[3].sum()) > 0  # copies dropped
+    before = rk.exact_kernel.launches
+    got = rk.exact_kernel(bundle, L, (h, w), t, out_dtype=out_dtype)
+    assert rk.exact_kernel.launches == before + 1
+    want = rk.rasterize_masks_exact_env_plain(bundle, L, (h, w), t,
+                                              out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert got.dtype == out_dtype and got.shape == (b, L, h, w)
+    assert torch.equal(got, want)
+    assert want[1, L - 1].any() and not want[1, :L - 1].any()
+    assert not want[0].any()
+
+
+@pytest.mark.parametrize("t,h,w,kb", ENV_BLOCK_CASES)
+def test_rank_kernel_env_blocks(t, h, w, kb):
+    """The rank kernel bit-equal to its plain version and to
+    rank_from_masks of the masks kernel where its chunks and layer
+    barriers branch, with an empty env and a one-layer env."""
+    _require_cuda()
+    L, E, b = 5, 100, 24
+    segs = _env_block_segments(t * 17 + w, b, E, h, w, L, exact=False)
+    bundle = rk.compact_env_idx_soa(
+        *segs[:5], kb * rk._n_xblocks(w), h, t, edge_layer=segs[5],
+        n_layers=L, w=w,
+    )
+    _one_live_layer(bundle[-1], L)
+    before = rk.rank_kernel.launches
+    got = rk.rank_kernel(bundle, L, (h, w), t)
+    assert rk.rank_kernel.launches == before + 1
+    want = rk.rasterize_rank_env_plain(bundle, L, (h, w), t)
+    via_masks = ras.rank_from_masks(rk.masks_kernel(bundle, L, (h, w), t))
+    torch.cuda.synchronize()
+    assert got.dtype == torch.uint8 and got.shape == (b, h, w)
+    assert torch.equal(got, want)
+    assert torch.equal(got, via_masks)
+    assert not want[0].any()
+    assert set(want[1].unique().tolist()) == {0, L}
+
+
 def _soa_segments(seed, b, nl, e, h, w):
     """Per-layer segments on the card: p0, p1 (b, nl, e, 2), draw
     (b, nl, e); env 0 draws nothing."""

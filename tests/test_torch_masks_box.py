@@ -1,13 +1,14 @@
 """The masks kernel's box clipping loses no pixel.
 
-The masks kernel (ops/csrc/masks.cu) tests only the pixels of each live
-copy's box -- its segment's bounding box padded by the stroke's reach and
-a one-pixel margin, clipped to the copy's stamped bands and to its lane
-block's output lanes (`rasterize_kernels.copy_box` at `box_pad(t)`, the
-rule of stamp.cuh's `copy_box`) -- where the plain version
-(`rasterize_masks_env_plain`) evaluates the copy's whole window. The two
-agree only if every output pixel that a copy lights in the plain version
-lies inside that copy's box. This checks it on the port's compaction
+The masks and rank kernels (ops/csrc/masks.cu, rank.cu) test only the
+pixels of each live copy's box -- its segment's bounding box padded by the
+stroke's reach and a one-pixel margin, clipped to the copy's stamped bands
+and to its lane block's output lanes (`rasterize_kernels.copy_box` at
+`box_pad(t)`, the rule of stamp.cuh's `copy_box`) -- where the plain
+versions (`rasterize_masks_env_plain`, `rasterize_rank_env_plain`)
+evaluate the copy's whole window. They agree only if every output pixel
+that a copy lights in the plain version lies inside that copy's box. This
+checks it on the port's compaction
 bundles (equal to the JAX package's, tests/test_torch_compaction.py), on
 the CPU: random bundles at t = 1, 2, 3 and three frame shapes (the lane
 split at 128x160, one lane block at 48x96, a width that is not a

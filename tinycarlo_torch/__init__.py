@@ -16,8 +16,10 @@ its counterpart at the same path. The port runs on an NVIDIA GPU:
   replayed as a CUDA graph, and the rasterizer benchmark, whose older
   compaction layouts have their own kernels (frame_soa.cu, env_soa.cu,
   env_seg.cu) and whose output-floor probes theirs (probe_ovl.cu,
-  probe_fill.cu, probe_skip.cu). Nine `.cu` sources share two headers:
-  stamp.cuh (the stamp) and store.cuh (the 16-byte store path).
+  probe_fill.cu, probe_skip.cu). Nine `.cu` sources share three headers:
+  stamp.cuh (the stamp), store.cuh (the 16-byte store path) and
+  env_block.cuh (the one-block-per-env skeleton of masks.cu, rank.cu and
+  exact.cu).
 
 Entry points take `device=` and default to "cuda"; they raise when no GPU
 is present instead of carrying on on the CPU. Tests pass `device="cpu"`,

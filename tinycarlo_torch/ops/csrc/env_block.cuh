@@ -1,0 +1,376 @@
+// env_block.cuh -- the one-block-per-env skeleton that the masks (masks.cu,
+// K1), rank (rank.cu, K3) and exact (exact.cu, K4) kernels share, so that
+// the three cannot drift apart.
+//
+// One block of kEnvThreads threads per env walks the env's output in
+// whole-width row chunks (`Chunks`: the whole frame where it fits
+// kChunkBytes -- 128x160 uint8 -- else chunks of a multiple of 16 rows:
+// 48 at 480x640 uint8 and at 128x160 float32), so a chunk is one
+// contiguous range of the output. The block reads the env's live slots
+// once and buckets their copies by layer in shared memory (`bucket`: a
+// count, a prefix and a scatter), each copy with its number of work units,
+// slabs of its box's rows; a prefix sum over the units (`block_scan`) lets
+// the block's warps take a layer's units round robin (`stamp_units`; a
+// binary search finds a unit's copy). A warp stamps its unit into a zeroed
+// chunk buffer laid out at the destination's 16-byte phase, and the chunk
+// leaves through store.cuh's 16-byte streaming stores (`drain_span`),
+// which zero the buffer behind them; an item with no unit (an empty env or
+// layer) is a register fill of zeros (`fill_span`) and touches no shared
+// memory. `env_frames` is the chunk loop, in one of two shapes:
+//   masks (B, L, h, w): items (layer, chunk), each layer's units stamped
+//     with the value `one` (255, or 1.0f);
+//   ranks (B, h, w) uint8: items (chunk), the layers' units stamped in
+//     paint order, a barrier between two stamped layers, each store l + 1
+//     -- cv2's order: the last store at a pixel is 1 + its highest layer,
+//     with no atomics; a layer with no unit costs no barrier.
+//
+// A kernel gives its copies as a type C with
+//   Units units(size_t o, int word)
+//       the work units of copy o (its offset into the (B, le) arrays) with
+//       band word `word`: n units of `rows` frame rows each from row y0
+//       (n = 0 when it lights nothing);
+//   void stamp(size_t o, int uy, int rows, int cy0, int cy1, T* chunk,
+//              T value)
+//       by one whole warp: chunk[(y - cy0) * w + x] = value for every lit
+//       pixel (y, x) of the unit of `rows` rows from row uy, with y in
+//       [cy0, cy1) and x an output lane.
+// Stores of one value are idempotent, so the warps of a layer need no
+// ordering among themselves. The exact kernel's units have at most 32
+// rows, one a lane, and `row_spans` walks the pixels of per-row spans
+// with the warp's lanes on consecutive pixels, so that its stamp touches
+// its rows' spans, not its whole box.
+#pragma once
+
+#include "stamp.cuh"
+#include "store.cuh"
+
+namespace tc {
+
+constexpr int kEnvThreads = 128;
+constexpr int kEnvWarps = kEnvThreads / 32;
+// the largest chunk of output rows a block stages in shared memory
+constexpr int kChunkBytes = 32768;
+// pixels of a box a warp takes at a time
+constexpr int kUnitPixels = 1024;
+// the bundle's idx carries 7 pad slots after its k slots
+constexpr int kPadSlots = 7;
+
+// A copy's work units: n slabs of `rows` frame rows from row y0.
+struct Units {
+  int n, y0, rows;
+};
+
+template <typename T> struct One;
+template <> struct One<uint8_t> { static constexpr uint8_t value = 255; };
+template <> struct One<float> { static constexpr float value = 1.f; };
+
+// A launch's row chunks.
+struct Chunks {
+  int rows, n;    // rows per chunk, chunks per frame
+  int buf_bytes;  // the chunk buffer, with 16 bytes of slack for the phase
+};
+
+inline Chunks plan_chunks(const Geometry& g, int elem_bytes) {
+  Chunks q;
+  const int row_bytes = g.w * elem_bytes;
+  int rows = g.h;
+  if ((long long)rows * row_bytes > kChunkBytes) {
+    rows = kChunkBytes / row_bytes > 1 ? kChunkBytes / row_bytes : 1;
+    if (rows >= kGran) rows = rows / kGran * kGran;
+  }
+  q.rows = rows;
+  q.n = (g.h + rows - 1) / rows;
+  q.buf_bytes = (rows * row_bytes + 15) / 16 * 16 + 16;
+  return q;
+}
+
+// Dynamic shared memory of `env_frames`: the chunk buffer, then the
+// buckets' records (kp entries each of three arrays), the layer offsets
+// and counters and the scan's per-warp sums.
+inline size_t env_smem(const Chunks& q, const Geometry& g) {
+  return q.buf_bytes +
+         sizeof(int) * (3 * (size_t)g.kp + 2 * g.L + 1 + kEnvWarps);
+}
+
+struct EnvShared {
+  uint8_t* buf;
+  int* rec_e;  // the bucketed copies, layer l's in [off[l], off[l+1])
+  int* rec_p;  // the running total of their units (inclusive)
+  int* rec_y;  // their units' first row y0 | rows per unit << 16
+  int* off;    // L + 1
+  int* cur;    // L
+  int* part;   // kEnvWarps
+};
+
+__device__ __forceinline__ EnvShared carve(uint8_t* smem, const Chunks& q,
+                                           const Geometry& g) {
+  EnvShared s;
+  s.buf = smem;
+  s.rec_e = reinterpret_cast<int*>(smem + q.buf_bytes);
+  s.rec_p = s.rec_e + g.kp;
+  s.rec_y = s.rec_p + g.kp;
+  s.off = s.rec_y + g.kp;
+  s.cur = s.off + g.L + 1;
+  s.part = s.cur + g.L;
+  return s;
+}
+
+// The layer of a live band word, or -1.
+__device__ __forceinline__ int word_layer(const Geometry& g, int word) {
+  if (!word_live(word) || word < 0) return -1;
+  const int l = word_frame(word, g) / g.nxb;
+  return l < g.L ? l : -1;
+}
+
+// In-place inclusive prefix sum of a[0, m) by the block; ends with a
+// barrier.
+__device__ void block_scan(int* a, int m, int* part) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int carry = 0;
+  for (int base = 0; base < m; base += kEnvThreads) {
+    const int i = base + threadIdx.x;
+    int v = i < m ? a[i] : 0;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, v, d);
+      if (lane >= d) v += y;
+    }
+    if (lane == 31) part[warp] = v;
+    __syncthreads();
+    if (warp == 0) {
+      int s = lane < kEnvWarps ? part[lane] : 0;
+#pragma unroll
+      for (int d = 1; d < kEnvWarps; d <<= 1) {
+        const int y = __shfl_up_sync(0xffffffffu, s, d);
+        if (lane >= d) s += y;
+      }
+      if (lane < kEnvWarps) part[lane] = s;
+    }
+    __syncthreads();
+    v += carry + (warp > 0 ? part[warp - 1] : 0);
+    if (i < m) a[i] = v;
+    carry += part[kEnvWarps - 1];
+    __syncthreads();
+  }
+}
+
+// Env `env`'s live copies (band words bw) bucketed by layer, each with its
+// units (c.units). Called by the whole block; ends with a barrier.
+template <typename C>
+__device__ void bucket(const C& c, const Geometry& g, const int32_t* counts,
+                       const int32_t* idx, const int32_t* bw, int env,
+                       const EnvShared& sh) {
+  const int n = min(counts[env], max(g.kp - kPadSlots, 0));
+  const int32_t* ei = idx + (size_t)env * g.kp;
+  const int32_t* eb = bw + (size_t)env * g.le;
+  for (int l = threadIdx.x; l < g.L; l += kEnvThreads) sh.cur[l] = 0;
+  __syncthreads();
+  for (int s = threadIdx.x; s < n; s += kEnvThreads) {
+    const int l = word_layer(g, eb[ei[s]]);
+    if (l >= 0) atomicAdd(&sh.cur[l], 1);
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int acc = 0;
+    for (int l = 0; l < g.L; ++l) {
+      sh.off[l] = acc;
+      acc += sh.cur[l];
+      sh.cur[l] = sh.off[l];
+    }
+    sh.off[g.L] = acc;
+  }
+  __syncthreads();
+  for (int s = threadIdx.x; s < n; s += kEnvThreads) {
+    const int e = ei[s];
+    const int word = eb[e];
+    const int l = word_layer(g, word);
+    if (l < 0) continue;
+    const int pos = atomicAdd(&sh.cur[l], 1);
+    const Units u = c.units((size_t)env * g.le + e, word);
+    sh.rec_e[pos] = e;
+    sh.rec_p[pos] = u.n;
+    sh.rec_y[pos] = u.y0 | (u.rows << 16);
+  }
+  __syncthreads();
+  block_scan(sh.rec_p, sh.off[g.L], sh.part);
+}
+
+// Stamp the work units [ub, ue) of the records [jb, je) into the chunk of
+// frame rows [cy0, cy1), each warp a unit at a time; where a frame has
+// more than one chunk (`chunked`), a unit whose rows miss the chunk is
+// skipped.
+template <typename T, typename C>
+__device__ void stamp_units(const C& c, const Geometry& g, int env,
+                            const EnvShared& sh, int jb, int je, int ub,
+                            int ue, bool chunked, int cy0, int cy1, T* chunk,
+                            T value) {
+  const int warp = threadIdx.x >> 5;
+  for (int u = ub + warp; u < ue; u += kEnvWarps) {
+    // the unit's copy: the first record whose running total exceeds u
+    int lo = jb, hi = je - 1;
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (sh.rec_p[mid] > u) hi = mid; else lo = mid + 1;
+    }
+    const int first = lo > 0 ? sh.rec_p[lo - 1] : 0;
+    const int ry = sh.rec_y[lo], rows = ry >> 16;
+    const int y = (ry & 0xFFFF) + (u - first) * rows;
+    if (chunked && (y >= cy1 || y + rows <= cy0)) continue;
+    c.stamp((size_t)env * g.le + sh.rec_e[lo], y, rows, cy0, cy1, chunk,
+            value);
+  }
+}
+
+// The rows that `row_spans` takes: at most 32, one a lane.
+constexpr int kUnitRows = 32;
+constexpr unsigned kAllLanes = 0xffffffffu;
+
+// By a whole warp: f(active, r, j) for every pixel j in [0, n_r) of every
+// lane r's span of n_r pixels, the warp's lanes on consecutive (r, j)
+// pairs (an exclusive scan of the counts, then a binary search of each
+// pair's lane by shuffles). Every lane calls f the same number of times,
+// so f may shuffle; `active` is false for a lane past the last pixel.
+template <typename F>
+__device__ __forceinline__ void row_spans(int n, F f) {
+  const int lane = threadIdx.x & 31;
+  int incl = n;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int y = __shfl_up_sync(kAllLanes, incl, d);
+    if (lane >= d) incl += y;
+  }
+  const int excl = incl - n;
+  const int total = __shfl_sync(kAllLanes, incl, 31);
+  for (int i0 = 0; i0 < total; i0 += 32) {
+    const int i = i0 + lane;
+    // the last lane whose span starts at or before pixel i
+    int r = 0;
+#pragma unroll
+    for (int s = 16; s > 0; s >>= 1) {
+      if (__shfl_sync(kAllLanes, excl, r + s) <= i) r += s;
+    }
+    f(i < total, r, i - __shfl_sync(kAllLanes, excl, r));
+  }
+}
+
+// The block's env (blockIdx.x): masks, or with kRank ranks, as the header
+// says. `smem` holds env_smem(q, g) bytes.
+template <bool kRank, typename T, typename C>
+__device__ __forceinline__ void env_frames(const C& c, const Geometry& g,
+                                           const int32_t* counts,
+                                           const int32_t* idx,
+                                           const int32_t* bw, T* out,
+                                           const Chunks& q, T one,
+                                           uint8_t* smem) {
+  const EnvShared sh = carve(smem, q, g);
+  const int env = blockIdx.x;
+  const bool env_live = counts[env] > 0;
+  if (env_live) {
+    for (int i = threadIdx.x; i < q.buf_bytes / 16; i += kEnvThreads) {
+      reinterpret_cast<uint4*>(sh.buf)[i] = make_uint4(0, 0, 0, 0);
+    }
+    __syncthreads();
+    bucket(c, g, counts, idx, bw, env, sh);
+  }
+  const int frames = kRank ? 1 : g.L;
+  for (int it = 0; it < frames * q.n; ++it) {
+    const int f = it / q.n;
+    const int cy0 = (it - f * q.n) * q.rows;
+    const int cy1 = min(g.h, cy0 + q.rows);
+    uint8_t* dst = reinterpret_cast<uint8_t*>(
+        out + (((size_t)env * frames + f) * g.h + cy0) * g.w);
+    const long long bytes = (long long)(cy1 - cy0) * g.w * sizeof(T);
+    // the chunk at dst's 16-byte phase, so the drain's vectors align
+    T* chunk = reinterpret_cast<T*>(sh.buf +
+                                    (reinterpret_cast<uintptr_t>(dst) & 15));
+    // the layers of this item: all of them, in paint order, for ranks
+    const int l0 = kRank ? 0 : f, l1 = kRank ? g.L : f + 1;
+    bool stamped = false;  // the same in every thread: shared values only
+    for (int l = l0; l < l1; ++l) {
+      if (!env_live || counts[(4 + l) * g.B + env] <= 0) continue;
+      const int jb = sh.off[l], je = sh.off[l + 1];
+      const int ub = jb > 0 ? sh.rec_p[jb - 1] : 0;
+      const int ue = je > 0 ? sh.rec_p[je - 1] : 0;
+      if (ub == ue) continue;
+      if (kRank && stamped) __syncthreads();  // the lower layer lands first
+      stamp_units(c, g, env, sh, jb, je, ub, ue, q.n > 1, cy0, cy1, chunk,
+                  kRank ? (T)(l + 1) : one);
+      stamped = true;
+    }
+    if (!stamped) {  // nothing to stamp: zeros from registers
+      fill_span(dst, 0, bytes, 0u, threadIdx.x, kEnvThreads);
+      continue;
+    }
+    __syncthreads();
+    drain_span(dst, reinterpret_cast<uint8_t*>(chunk), bytes, threadIdx.x,
+               kEnvThreads);
+    __syncthreads();  // zeroed before the next item's stamps
+  }
+}
+
+// The fast stroke's copies (`compact_env_idx_soa`; masks.cu, rank.cu):
+// each copy's box (stamp.cuh `copy_box`, padded by `pad`: the stroke's
+// reach + kBoxMargin) cut into units of about kUnitPixels pixels, walked
+// with lanes on neighbouring columns, stepping (row, column) without a
+// division; each pixel is tested with `window_hit` on the plain version's
+// apx / apy floats (integer valued, exact).
+struct FastCopies {
+  const Params& p;
+  float pad;
+
+  __device__ __forceinline__ Units units(size_t o, int word) const {
+    const CopyBox b = copy_box(p, word, p.ax[o], p.ay[o], p.abx[o],
+                               p.aby[o], pad);
+    const int nx = b.x1 - b.x0, ny = b.y1 - b.y0;
+    if (nx <= 0 || ny <= 0) return {0, 0, 1};
+    const int rows = max(1, kUnitPixels / nx);
+    return {(ny + rows - 1) / rows, b.y0, rows};
+  }
+
+  template <typename T>
+  __device__ __forceinline__ void stamp(size_t o, int uy, int rows, int cy0,
+                                        int cy1, T* chunk, T value) const {
+    const int lane = threadIdx.x & 31;
+    const int word = p.bw[o];
+    const float ax = p.ax[o], ay = p.ay[o];
+    const float abx = p.abx[o], aby = p.aby[o], inv = p.inv[o];
+    const CopyBox b = copy_box(p, word, ax, ay, abx, aby, pad);
+    const int nx = b.x1 - b.x0;
+    const int y0 = max(uy, cy0);
+    const int y1 = min(min(b.y1, uy + rows), cy1);
+    if (y0 >= y1) return;
+    // window rows: apy = rr - (ay - y0s); a tail band in its own window
+    const float ayw = ay - (float)b.y0s;
+    T* base = chunk + b.xoff;
+    const int total = nx * (y1 - y0);
+    int r = lane / nx, c = lane - r * nx;
+    const int dr = 32 / nx, dc = 32 - dr * nx;
+    for (int i = lane; i < total; i += 32) {
+      const int y = y0 + r, x = b.x0 + c;
+      const int rr = y - b.wrow0;
+      float apy;
+      if (rr < p.win) {
+        apy = (float)rr - ayw;
+      } else {  // a tail band, in its own 16-row window
+        const int band_row = rr & ~(kGran - 1);
+        apy = (float)(rr - band_row) - (ay - (float)(b.y0s + band_row));
+      }
+      if (window_hit((float)x - ax, apy, abx, aby, inv, p)) {
+        base[(y - cy0) * p.w + x] = value;
+      }
+      c += dc;
+      r += dr;
+      if (c >= nx) {
+        c -= nx;
+        ++r;
+      }
+    }
+  }
+};
+
+// The boxes' padding of the fast stroke: its reach + kBoxMargin.
+inline float fast_pad(const Params& p) {
+  return sqrtf(p.lat2 > p.cap2 ? p.lat2 : p.cap2) + kBoxMargin;
+}
+
+}  // namespace tc

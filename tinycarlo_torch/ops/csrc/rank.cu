@@ -18,26 +18,18 @@
 // painted last. Envs with no live slot are written as zeros. It equals
 // rank_from_masks of the masks kernel's output on the same bundle.
 //
-// Design. One thread block per (env, lane block xb): B*nxb blocks. The
-// block keeps its lane block as a uint8 [hp][wb] strip of ranks in shared
-// memory (16 KB at 128 rows, 61 KB at 480 rows), zeroes it, collects the
-// env's live slots of this lane block (any layer) into a shared list with
-// each slot's layer, stamps them with all threads, then writes rows [0, h)
-// and lanes [xb*128, min(w, xb*128 + 128)) to out[env] in 4-wide stores
-// when the width allows.
-//
-// The max. masks.cu lets threads store 1 into overlapping pixels with no
-// barrier between slots, which is safe only because storing 1 twice is
-// idempotent. max(strip, l+1) from threads of different slots is a race:
-// a lower layer's store could land after a higher one's. The block
-// therefore stamps layer by layer in ascending order, with a barrier
-// after each layer, and stores l+1 plainly: within one layer every store
-// writes the same value, and a later layer overwrites an earlier one --
-// cv2's own paint order, so the last store at a pixel is its maximum.
-// This keeps the strip at one byte per pixel (an int32 strip with
-// atomicMax would need 240 KB at 480x128 rows, more than a block has) and
-// costs L barriers per block; layers with counts[4+l] == 0, or with no
-// slot in this lane block, are skipped without walking their stamps.
+// Design. The one-block-per-env skeleton of env_block.cuh, shared with
+// masks.cu and exact.cu, in its rank shape: one block of 128 threads per env
+// buckets the env's live copies by layer once, with masks.cu's boxes and
+// units (`FastCopies`), and walks the env's (h, w) map in whole-width
+// row chunks in shared memory (the whole 20 KB map at 128x160; 48-row chunks
+// at 480x640). Into each chunk it stamps layer 0's units, then, after a
+// barrier, layer 1's, and so on, each store a plain l + 1 -- cv2's paint
+// order, so the last store at a pixel is 1 + its highest layer. A max from
+// threads of different layers would race, and this needs no atomics: within a
+// layer every store writes the same value. A layer with no unit is skipped
+// without a barrier, and a chunk with none is a register fill of zeros. The
+// chunk leaves through store.cuh's 16-byte streaming stores.
 //
 // Bound on the H100 at the serving shape (B=4096, L=5, 128x160, t=2,
 // ~32 live slots per env). Bytes: the uint8 map, 84 MB, written once,
@@ -46,84 +38,29 @@
 // stroke's 18 float32 operations per pixel, over each live copy's
 // bounding box padded by the stroke radius, ~0.55 G -- 0.008 ms at 67
 // TFLOP/s. So bytes bound it (chip_smoke.py computes both from each
-// run's bundle). The design writes each output byte once but evaluates
-// each live slot's whole window, ~20x the bounding boxes' pixels; like
-// masks.cu it does not yet shrink the window to the segment's extent.
-#include "stamp.cuh"
+// run's bundle). The design writes each output byte once, 16 bytes a
+// store, and tests only the boxes' pixels (with a one-pixel margin).
+#include "env_block.cuh"
 
 namespace {
 
 using namespace tc;
 
-constexpr int kThreads = 256;
-
-__global__ void __launch_bounds__(kThreads)
-rank_kernel(Params p, uint8_t* __restrict__ out, int strip_bytes) {
+__global__ void __launch_bounds__(kEnvThreads)
+rank_kernel(Params p, uint8_t* __restrict__ out, Chunks q, float pad) {
   extern __shared__ __align__(16) uint8_t smem[];
-  __shared__ int n_list;
-  const int env = blockIdx.x / p.nxb;
-  const int xb = blockIdx.x - env * p.nxb;
-  const int x0 = xb * kXB;
-  const int cols = min(p.w - x0, p.wb);
-  const bool vec = (p.w % 4 == 0) && (cols % 4 == 0);
-  uint8_t* dst = out + (size_t)env * p.h * p.w + x0;
-
-  const int n = p.counts[env];
-  if (n <= 0) {
-    store_strip<RawU8>(dst, nullptr, p, cols, vec);
-    return;
-  }
-
-  uint8_t* strip = smem;
-  int* list = reinterpret_cast<int*>(smem + strip_bytes);
-  int* lays = list + p.kp;
-  for (int i = threadIdx.x; i < p.hp * p.wb; i += blockDim.x) strip[i] = 0;
-  if (threadIdx.x == 0) n_list = 0;
-  __syncthreads();
-
-  // This lane block's live slots, of every layer, in any order.
-  const int32_t* idx = p.idx + (size_t)env * p.kp;
-  const int32_t* bw = p.bw + (size_t)env * p.le;
-  for (int s = threadIdx.x; s < n; s += blockDim.x) {
-    int e = idx[s];
-    int word = bw[e];
-    int frame = word_frame(word, p);
-    if (word_live(word) && frame % p.nxb == xb) {
-      int k = atomicAdd(&n_list, 1);
-      list[k] = e;
-      lays[k] = frame / p.nxb;
-    }
-  }
-  __syncthreads();
-
-  // Layers in paint order, a barrier after each: see "The max" above.
-  const int m = n_list;
-  for (int l = 0; l < p.L; ++l) {
-    if (p.counts[(4 + l) * p.B + env] <= 0) continue;
-    const uint8_t rank = (uint8_t)(l + 1);
-    bool stamped = false;
-    for (int j = 0; j < m; ++j) {
-      if (lays[j] != l) continue;
-      stamp_copy(p, (size_t)env * p.le + list[j], l * p.nxb + xb,
-                 [&](int row, int x) { strip[row * p.wb + x] = rank; });
-      stamped = true;
-    }
-    // `stamped` is the same in every thread: lays and m are shared
-    if (stamped) __syncthreads();
-  }
-  __syncthreads();
-  store_strip<RawU8>(dst, strip, p, cols, vec);
+  env_frames<true>(FastCopies{p, pad}, p, p.counts, p.idx, p.bw, out, q,
+                   (uint8_t)0, smem);
 }
 
 int launch(const Params& p, uint8_t* out, cudaStream_t stream) {
-  int strip_bytes, smem;
-  cudaError_t err = strip_smem(p, 2, rank_kernel, &strip_bytes, &smem);
+  if ((long long)p.B * p.h * p.w == 0) return (int)cudaGetLastError();
+  const Chunks q = plan_chunks(p, 1);
+  const size_t smem = env_smem(q, p);
+  cudaError_t err = cudaFuncSetAttribute(
+      rank_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const long long blocks = (long long)p.B * p.nxb;
-  if (blocks > 0) {
-    rank_kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(p, out,
-                                                              strip_bytes);
-  }
+  rank_kernel<<<p.B, kEnvThreads, smem, stream>>>(p, out, q, fast_pad(p));
   return (int)cudaGetLastError();
 }
 

@@ -1,10 +1,10 @@
 // stamp.cuh -- what the port's kernels share: the frame geometry, the
-// band-word decode, the window/tail walk, the list of a frame's slots, the
-// frame store, and the fast stroke's bundle and `window_hit` stamp. One
-// copy, so the kernels cannot drift apart. masks.cu, rank.cu and exact.cu
-// read the production bundles at 16-row bands; frame_soa.cu, env_soa.cu
-// and env_seg.cu the older SoA bundles at 8- or 16-row bands, one block
-// per 128-lane tile of a frame (`Tile`, `stamp_tile` below).
+// band-word decode, the fast stroke's bundle and `window_hit` stamp, and a
+// copy's box. One copy, so the kernels cannot drift apart. masks.cu,
+// rank.cu and exact.cu read the production bundles at 16-row bands, one
+// block per env (env_block.cuh); frame_soa.cu, env_soa.cu and env_seg.cu
+// the older SoA bundles at 8- or 16-row bands, one block per 128-lane tile
+// of a frame (`Tile`, `stamp_tile`, `soa_tile` below).
 //
 // Bundles (ops/rasterize_kernels.py). Both compactions give counts (4+L, B)
 // int32 rows [live, one-band, short, dropped, per-layer...], an idx (B, kp)
@@ -85,28 +85,6 @@ __device__ __forceinline__ bool word_live(int word) {
   return (word & kNbMask) > 0;
 }
 
-// Walk the rows a copy with band word `word` stamps in stacked frame
-// `frame`, with all threads of the block: hit(y0, rr, x) for rr in [0,
-// rows) from the window start -- stacked strip row y0 = rowband*16 -- and
-// lane x in [0, wb); store(row, x) where it holds, row in [0, hp) of the
-// frame's strip. No barrier: the caller orders stamps that must not
-// overlap.
-template <typename Hit, typename Store>
-__device__ __forceinline__ void walk_window(const Geometry& g, int word,
-                                            int frame, Hit hit, Store store) {
-  const int nb = word & kNbMask;
-  const int rowband = word >> kNbShift;  // frame * n_bands + b0 (stacked)
-  const int b0 = rowband - frame * g.n_bands;
-  // the window's bands, plus a tall copy's tail bands
-  const int rows = max(nb, g.win / kGran) * kGran;
-  const int y0 = rowband * kGran;
-  for (int i = threadIdx.x; i < rows * g.wb; i += blockDim.x) {
-    const int rr = i / g.wb;
-    const int x = i - rr * g.wb;
-    if (hit(y0, rr, x)) store(b0 * kGran + rr, x);
-  }
-}
-
 // `p` carries the stroke: bres, lat2, cap2 (a Params).
 template <typename Stroke>
 __device__ __forceinline__ bool window_hit(float apx, float apy, float abx,
@@ -137,52 +115,7 @@ __device__ __forceinline__ bool window_hit(float apx, float apy, float abx,
   return d2 <= r2;
 }
 
-// Stamp fast-stroke copy `o` (offset into the SoA arrays) of stacked frame
-// `frame`: store(row, x) for every lit pixel. A tail band is stamped in
-// its own kGran-row window at its band row, as `_tier_loops` does.
-template <typename Store>
-__device__ __forceinline__ void stamp_copy(const Params& p, size_t o,
-                                           int frame, Store store) {
-  const float ax = p.ax[o], ay = p.ay[o];
-  const float abx = p.abx[o], aby = p.aby[o], inv = p.inv[o];
-  walk_window(p, p.bw[o], frame, [&](int y0, int rr, int x) {
-    float ys, ay_rel;
-    if (rr < p.win) {
-      ys = (float)rr;
-      ay_rel = ay - (float)y0;
-    } else {
-      const int band_row = (rr / kGran) * kGran;
-      ys = (float)(rr - band_row);
-      ay_rel = ay - (float)(y0 + band_row);
-    }
-    return window_hit((float)x - ax, ys - ay_rel, abx, aby, inv, p);
-  }, store);
-}
-
-// Collect into `list` the copies of the env's live slots (s < counts[0,
-// env]) whose band word belongs to stacked frame `frame`, in any order;
-// returns their number after a barrier. `n_list` is a shared counter.
-__device__ __forceinline__ int list_frame_slots(const Geometry& g,
-                                                const int32_t* idx,
-                                                const int32_t* bw, int env,
-                                                int n, int frame, int* list,
-                                                int* n_list) {
-  if (threadIdx.x == 0) *n_list = 0;
-  __syncthreads();
-  const int32_t* ei = idx + (size_t)env * g.kp;
-  const int32_t* eb = bw + (size_t)env * g.le;
-  for (int s = threadIdx.x; s < n; s += blockDim.x) {
-    const int e = ei[s];
-    const int word = eb[e];
-    if (word_live(word) && word_frame(word, g) == frame) {
-      list[atomicAdd(n_list, 1)] = e;
-    }
-  }
-  __syncthreads();
-  return *n_list;
-}
-
-// ---- The masks kernel's box-clipped stamps (masks.cu) ----
+// ---- The box-clipped stamps of masks.cu, rank.cu and exact.cu ----
 //
 // The pixels a fast-stroke copy can light: its segment's bounding box,
 // widened by `pad` (the stroke's reach, sqrt(max(lat2, cap2)), 0 for the
@@ -196,7 +129,10 @@ __device__ __forceinline__ int list_frame_slots(const Geometry& g,
 // a computed distance by far less than the margin (below 0.3 px at the
 // compaction's 1e6 px clamp). rasterize_kernels.copy_box is the same rule
 // in PyTorch, and tests/test_torch_masks_box.py checks that no lit pixel
-// of the plain version falls outside it.
+// of the plain version falls outside it. The exact stroke's box
+// (exact.cu) is the same rule over the segment between its cap centres,
+// padded by the stroke's extent (rasterize_kernels.exact_copy_box;
+// tests/test_torch_exact_box.py).
 constexpr float kBoxMargin = 1.f;
 
 struct CopyBox {
@@ -236,8 +172,7 @@ __device__ __forceinline__ CopyBox copy_box(const Geometry& g, int word,
   return b;
 }
 
-// How a strip byte becomes an output element: a mask's 0/255 or 0/1, or
-// the raw byte (a rank).
+// How a strip byte becomes an output element: a mask's 0/255.
 struct MaskU8 {
   using T = uint8_t;
   using V = uchar4;
@@ -246,23 +181,6 @@ struct MaskU8 {
     return make_uchar4(one(a), one(b), one(c), one(d));
   }
 };
-struct MaskF32 {
-  using T = float;
-  using V = float4;
-  __device__ static T one(uint8_t s) { return s ? 1.f : 0.f; }
-  __device__ static V four(uint8_t a, uint8_t b, uint8_t c, uint8_t d) {
-    return make_float4(one(a), one(b), one(c), one(d));
-  }
-};
-struct RawU8 {
-  using T = uint8_t;
-  using V = uchar4;
-  __device__ static T one(uint8_t s) { return s; }
-  __device__ static V four(uint8_t a, uint8_t b, uint8_t c, uint8_t d) {
-    return make_uchar4(a, b, c, d);
-  }
-};
-
 // Write `cols` lanes of rows [0, h) of the strip, whose rows are `stride`
 // bytes apart (zeros when strip is null), to dst, whose rows are `w`
 // elements apart, in 4-wide stores when `vec`.
@@ -289,62 +207,6 @@ __device__ void store_rows(typename Conv::T* dst, const uint8_t* strip,
     const int x = i - r * cols;
     dst[(size_t)r * g.w + x] = Conv::one(strip ? strip[r * stride + x] : 0);
   }
-}
-
-// store_rows of a [hp][wb] strip.
-template <typename Conv>
-__device__ void store_strip(typename Conv::T* dst, const uint8_t* strip,
-                            const Geometry& g, int cols, bool vec) {
-  store_rows<Conv>(dst, strip, g.wb, g, cols, vec);
-}
-
-// One thread block's frame of a masks output (B, L, h, w), the block
-// (env, frame) with frame = l*nxb + xb: B*L*nxb blocks. The frame is a
-// uint8 [hp][wb] strip in dynamic shared memory (`smem`; the slot list
-// follows the strip's `strip_bytes`); stamp(env, frame, strip, list, m)
-// sets its lit bytes to 1 from the m listed copies, with all threads.
-// Rows [0, h) and lanes [xb*128, min(w, xb*128 + 128)) are written out;
-// layers with counts[4+l] == 0 and envs with no live slot as zeros.
-template <typename Conv, typename Stamp>
-__device__ void masks_frame(const Geometry& g, const int32_t* counts,
-                            const int32_t* idx, const int32_t* bw,
-                            typename Conv::T* out, uint8_t* smem,
-                            int strip_bytes, Stamp stamp) {
-  __shared__ int n_list;
-  const int n_frames = g.L * g.nxb;
-  const int env = blockIdx.x / n_frames;
-  const int frame = blockIdx.x - env * n_frames;
-  const int l = frame / g.nxb;
-  const int x0 = (frame - l * g.nxb) * kXB;
-  const int cols = min(g.w - x0, g.wb);
-  const bool vec = (g.w % 4 == 0) && (cols % 4 == 0);
-  typename Conv::T* dst = out + ((size_t)env * g.L + l) * g.h * g.w + x0;
-
-  const int n = counts[env];
-  if (n <= 0 || counts[(4 + l) * g.B + env] <= 0) {
-    store_strip<Conv>(dst, nullptr, g, cols, vec);
-    return;
-  }
-  uint8_t* strip = smem;
-  int* list = reinterpret_cast<int*>(smem + strip_bytes);
-  for (int i = threadIdx.x; i < g.hp * g.wb; i += blockDim.x) strip[i] = 0;
-  // (the barriers in list_frame_slots order the zeroing before the stamps)
-  const int m = list_frame_slots(g, idx, bw, env, n, frame, list, &n_list);
-  stamp(env, frame, strip, list, m);
-  __syncthreads();
-  store_strip<Conv>(dst, strip, g, cols, vec);
-}
-
-// Dynamic shared memory of a block's strip and `lists` kp-entry int
-// lists: sets *strip_bytes (the strip rounded to 16) and *total, and
-// allows `kernel` that much (above the default 48 KB where needed).
-template <typename K>
-inline cudaError_t strip_smem(const Geometry& g, int lists, K kernel,
-                              int* strip_bytes, int* total) {
-  *strip_bytes = (g.hp * g.wb + 15) / 16 * 16;
-  *total = *strip_bytes + lists * g.kp * (int)sizeof(int);
-  return cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, *total);
 }
 
 // ---- The older SoA bundles: one block per 128-lane tile of a frame ----
@@ -405,11 +267,11 @@ __device__ __forceinline__ bool touches(float ax, float abx, float pad,
 // rr, b0 the band within the frame. With `Absolute` the pixel row is
 // taken as `_kernel` and `_kernel_env` take it, apy = (rr + y0) - ay;
 // otherwise window-relative, a tail band in its own Gran-row window, as
-// `_tier_loops_seg` (and `stamp_copy`). Both are exact (integer-valued
-// floats below 2^24). Rows outside the strip's [0, hp) are never written:
-// a compaction's own bands always fit, but the bundle does not carry its
-// band height, and one compacted at another gran would reach past the
-// strip. No barrier: stores of 1 are idempotent.
+// `_tier_loops_seg` (and env_block.cuh's `FastCopies`). Both are exact
+// (integer-valued floats below 2^24). Rows outside the strip's [0, hp)
+// are never written: a compaction's own bands always fit, but the bundle
+// does not carry its band height, and one compacted at another gran would
+// reach past the strip. No barrier: stores of 1 are idempotent.
 template <int Gran, bool Absolute, typename Stroke>
 __device__ __forceinline__ void stamp_tile(const Geometry& g,
                                            const Stroke& s, const Tile& t,

@@ -857,6 +857,34 @@ def copy_box(x0, y0, x1, y1, pad: float, nb, b0, xb,
     return xlo, torch.maximum(xhi, xlo), ylo, torch.maximum(yhi, ylo)
 
 
+def exact_box_pad(thickness: int) -> float:
+    """The exact kernel's box padding: the stroke's extent
+    (`cv2_stroke.stroke_y_extent`, t/2 + 2) taken at the cap radius
+    (t + 1) // 2 >= t/2 -- the launcher knows the cap table, not t; the
+    two agree at even t -- plus `_BOX_MARGIN`, as exact.cu computes it."""
+    return float(cap_radius(thickness)) + 2.0 + _BOX_MARGIN
+
+
+def exact_copy_box(cap0, cap1, word, pad: float,
+                   resolution: Tuple[int, int]):
+    """The pixels an exact copy can light, by the rule of the exact
+    kernel's stamps (ops/csrc/exact.cu `ExactCopies::box`): `copy_box` of
+    the segment between its two cap centres -- fields 22 and 23 of
+    `compact_env_exact_soa`, packed block-local lanes and stacked strip
+    rows -- padded by `pad` (`exact_box_pad(t)`), for band words `word`
+    (field 29). The centres are integers, so the float32 operations are
+    exact. Returns float (xlo, xhi, ylo, yhi) as `copy_box` does."""
+    n_bands, hp, _, nxb, _ = _frame_geometry(resolution)
+    rowband = word >> _NB_SHIFT
+    frame = rowband // n_bands
+    cx0, cy0 = _unpack16(cap0)
+    cx1, cy1 = _unpack16(cap1)
+    row0 = frame * hp
+    return copy_box(cx0.float(), (cy0 - row0).float(), cx1.float(),
+                    (cy1 - row0).float(), pad, word & (_NB_PACK - 1),
+                    rowband - frame * n_bands, frame % nxb, resolution)
+
+
 def _plain_hits(bundle, resolution: Tuple[int, int], thickness: int):
     """The stamps of the masks and rank kernels, as `_window_hits` yields
     them, from a `compact_env_idx_soa` bundle."""
