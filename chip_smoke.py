@@ -24,7 +24,10 @@ any failed check:
    `compact_env_soa` and `compact_env_seg` layouts) on random bundles
    (t = 1, 2, 3; gran 8 and 16; 1, 2, 3 and 5 lane blocks; 30x200 to
    480x640; split and unsplit; odd and oversubscribed budgets; an empty
-   env). Bit-equality is required: the kernels are built with -fmad=false.
+   env), the env and segment kernels also on edge bundles (every live
+   slot in one layer, a budget counts[0] reaches, slots over 3-5 lane
+   blocks at w = 300 and 640). Bit-equality is required: the kernels are
+   built with -fmad=false.
 4. probe kernels: the output-floor probes of benchmarks/exp_r2.py (K8
    ovl, K9 fill, K10 skip) against their plain versions, bit for bit, on
    outputs pre-filled with a sentinel: N = 1, 7 and 4096 envs; KK = 0, 1,
@@ -39,13 +42,18 @@ any failed check:
    kernel once a render and each compaction mode none, every layout's
    masks with the same checksum, nothing dropped); then on each kernel
    mode's 4096-env bundle the kernel against its plain version, both
-   timed, and its bound.
+   timed, and its bound; the env (`env`, `cur`) and segment (`seg`)
+   kernels alone in back-to-back calls beside K9's fill and `fill_` of an
+   output of their size (the store floor), as phase 7 times the masks
+   kernel.
 6. probe modes: the same benchmark's probe modes ovl0 ovl64 ovl512
    dmaflat dmaflat16 dmaf32 dma dma4 dskip dskipall at 4096 envs: one
    launch an iteration, each checksum equal to the one its values give
    (ovl's values i + 0.9999 cross i + 1 only through the chain), ovl's
    time growing with KK and ovl512's no faster than its operations bound
-   (its 16384 multiply-add chains per env are not folded); per mode the
+   (its 16384 multiply-add chains per env are not folded; a multiply and
+   an add rounded apart are two instructions, bounded at the float32
+   instruction rate); per mode the
    kernel's and its library call's time (back-to-back calls), its plain
    version's and its bound (the benchmark's); dskip's live share.
 7. main path (classes): bench.py's workload through the port's entry
@@ -859,7 +867,8 @@ def soa_segments(seed, b, nl, e, h, w, dev):
 # (seed, B, L, E, h, w, t, gran, k per layer): the bench's 128x160 (nxb 2),
 # t = 1 at nxb 1 and 2, nxb 3 and 5, h not a multiple of the band, odd and
 # oversubscribed budgets, and 480x640, whose whole frame (307 KB of uint8)
-# exceeds a block's shared memory, so the unsplit layouts are tiled
+# exceeds a block's shared memory, so the env and segment kernels drain it
+# in 48-row chunks (the frame kernel tiles it by 128 lanes)
 SOA_CASES = [
     (31, 32, 3, 40, 128, 160, 2, 8, 40),
     (32, 32, 3, 40, 64, 48, 1, 16, 40),
@@ -868,6 +877,16 @@ SOA_CASES = [
     (35, 8, 5, 80, 480, 640, 2, 8, 80),
     (36, 8, 5, 80, 480, 640, 3, 16, 33),
     (37, 32, 3, 40, 128, 256, 1, 8, 40),
+]
+# (kind, seed, B, L, E, h, w, gran, k per env) of the env and segment
+# kernels at t = 2: every live slot of an env in one layer (the others
+# zeros), a budget that counts[0] reaches in every drawing env, and long
+# segments whose slots touch three or more lane blocks (w = 300 and 640)
+SOA_EDGE_CASES = [
+    ("one_layer", 51, 16, 3, 40, 128, 160, 16, 120),
+    ("budget", 52, 16, 3, 40, 128, 160, 8, 10),
+    ("long", 53, 16, 3, 40, 100, 300, 16, 120),
+    ("long", 54, 8, 5, 40, 480, 640, 8, 200),
 ]
 
 
@@ -890,7 +909,9 @@ def check_soa_kernels(rk, dev):
     bit for bit, on SOA_CASES' random bundles: the frame kernel on
     `compact_soa`, the env kernel on `compact_env_soa` lane-split and (t >=
     2, no w) unsplit, the segment kernel on `compact_env_seg` split (or one
-    block) and (t >= 2) unsplit. Returns {kernel name: max |error|}."""
+    block) and (t >= 2) unsplit; the env and segment kernels also on
+    SOA_EDGE_CASES' bundles, split and unsplit. Returns {kernel name: max
+    |error|}."""
     err = {"frame_soa": 0.0, "env_soa": 0.0, "env_seg": 0.0}
     for seed, b, nl, e, h, w, t, gran, kl in SOA_CASES:
         p0, p1, draw = soa_segments(seed, b, nl, e, h, w, dev)
@@ -919,11 +940,74 @@ def check_soa_kernels(rk, dev):
             err["env_seg"] = max(err["env_seg"], soa_kernel_vs_plain(
                 rk.env_seg_kernel, rk.rasterize_env_seg_plain, soa,
                 (nl, res, t, gran, split and nxb > 1)))
+    for kind, seed, b, nl, e, h, w, gran, k in SOA_EDGE_CASES:
+        p0, p1, draw = soa_edge_segments(kind, seed, b, nl, e, h, w, dev)
+        for split in (True, False):
+            soa = rk.compact_env_soa(p0, p1, draw, k * rk._n_xblocks(w), gran,
+                                     h, 2, w=w if split else None)
+            seg = rk.compact_env_seg(
+                p0[..., 0], p0[..., 1], p1[..., 0], p1[..., 1], draw, k,
+                gran, h, 2, w=w if split else None)
+            soa_edge_check(rk, kind, soa, seg, k * rk._n_xblocks(w), k, w,
+                           split)
+            err["env_soa"] = max(err["env_soa"], soa_kernel_vs_plain(
+                rk.env_soa_kernel, rk.rasterize_compact_env_soa_plain, soa,
+                (nl, (h, w), 2, gran, split)))
+            err["env_seg"] = max(err["env_seg"], soa_kernel_vs_plain(
+                rk.env_seg_kernel, rk.rasterize_env_seg_plain, seg,
+                (nl, (h, w), 2, gran, split and w > 128)))
     print(f"kernels: frame, env and segment kernels equal to their plain "
           f"versions on {len(SOA_CASES)} random bundles each (t = 1, 2, 3; "
           "gran 8 and 16; nxb 1, 2, 3, 5; 30x200 to 480x640; split and "
-          "unsplit; oversubscribed)")
+          "unsplit; oversubscribed); the env and segment kernels also on "
+          f"{len(SOA_EDGE_CASES)} edge bundles (one layer, a full budget, "
+          "slots over 3-5 lane blocks)")
     return err
+
+
+def soa_edge_segments(kind, seed, b, nl, e, h, w, dev):
+    """`soa_segments` for SOA_EDGE_CASES: `one_layer` draws in layer 1
+    only; `long` makes every third segment a near-horizontal one across
+    the frame, -50 to w + 50."""
+    import numpy as np
+    import torch
+
+    p0, p1, draw = soa_segments(seed, b, nl, e, h, w, dev)
+    if kind == "one_layer":
+        draw[:, [l for l in range(nl) if l != 1]] = False
+    if kind == "long":
+        rng = np.random.default_rng(seed + 1)
+        y = rng.uniform(0, h, (b, nl, e // 3))
+        x0 = rng.uniform(-50, 40, (b, nl, e // 3))
+        x1 = rng.uniform(w - 40, w + 50, (b, nl, e // 3))
+        dy = rng.uniform(-8, 8, (b, nl, e // 3))
+        f = lambda x: torch.tensor(x, dtype=torch.float32, device=dev)  # noqa
+        p0[:, :, ::3][..., :e // 3, :] = torch.stack([f(x0), f(y)], -1)
+        p1[:, :, ::3][..., :e // 3, :] = torch.stack([f(x1), f(y + dy)], -1)
+    return p0, p1, draw
+
+
+def soa_edge_check(rk, kind, soa, seg, k_soa, k_seg, w, split):
+    """That an edge case's env (`soa`, budget k_soa) and segment (`seg`,
+    k_seg) bundles are what the case is named for."""
+    import torch
+
+    if kind == "one_layer":
+        per_layer = seg[-1][4:]
+        check(int(per_layer[1].sum()) > 0 and int(per_layer.sum())
+              == int(per_layer[1].sum()), "live slots outside layer 1")
+    if kind == "budget":
+        # the dropped row: 2 of compact_env_soa's counts, 3 of the segments'
+        for counts, k, drop in ((soa[-1], k_soa, 2), (seg[-1], k_seg, 3)):
+            check(int(counts[0][1:].min()) == k == int(counts[0].max())
+                  and int(counts[drop].sum()) > 0,
+                  f"the budget {k} is not reached: {counts[0].tolist()}")
+    if kind == "long" and split:
+        nxb = rk._n_xblocks(w)
+        idx, bw = seg[0], seg[-2]
+        word = torch.gather(bw, 1, idx[:, :idx.shape[1] - 7].long())
+        bits = sum((word >> j) & 1 for j in range(nxb))
+        check(int(bits.max()) >= 3, "no slot touches three lane blocks")
 
 
 def rasterizer_bench(card, rk, errs, inputs):
@@ -932,11 +1016,14 @@ def rasterizer_bench(card, rk, errs, inputs):
     counts from that run, every kernel mode rendering the same masks
     (equal checksums, nothing dropped); then, on each kernel mode's
     4096-env bundle, the kernel against its plain version, both timed, and
-    its bound. Returns the `kernels` entries of the frame, env and segment
-    kernels."""
+    its bound; and the env kernel (`env`, `cur`) and the segment kernel
+    (`seg`) alone in back-to-back calls beside K9's fill and `fill_` of
+    their output's size (the store floor), in turns. Returns the `kernels`
+    entries of the frame, env and segment kernels."""
     import torch
 
     from tinycarlo_torch.benchmarks import rasterize_bench as rb
+    from tinycarlo_torch.ops import probe_kernels as pk
 
     for k in rb.KERNELS:
         k.launches = 0
@@ -979,6 +1066,7 @@ def rasterizer_bench(card, rk, errs, inputs):
               "env": rk.rasterize_compact_env_soa_plain,
               "cur": rk.rasterize_compact_env_soa_plain,
               "seg": rk.rasterize_env_seg_plain}
+    calls = {}
     for mode in ("full", "env", "cur", "seg"):
         start = inputs.layer[0] if mode in ("full", "env") else inputs.packed[0]
         soa, _ = rb.bundle(mode, inputs, start, 0)
@@ -990,7 +1078,9 @@ def rasterizer_bench(card, rk, errs, inputs):
         name = kernel.NAME
         errs[name] = max(errs[name], soa_kernel_vs_plain(
             kernel, plains[mode], soa, args))
-        ms = cuda_ms(lambda: kernel(soa, *args), repeats=20)
+        calls[mode] = lambda soa=soa, args=args, kernel=kernel: kernel(
+            soa, *args)
+        ms = cuda_ms(calls[mode], repeats=20)
         plain_ms = cuda_ms(lambda: plains[mode](soa, *args), repeats=5,
                            warmup=1)
         n_bytes, n_ops = soa_bytes_and_ops(rk, mode, soa, res, rb.THICK, gran,
@@ -1007,7 +1097,7 @@ def rasterizer_bench(card, rk, errs, inputs):
                   f"{out.numel() / 1e6:.1f} MB of uint8): "
                   f"{cuda_ms(lambda: out.sum(dtype=torch.int64)):.4f} ms")
         if mode == "cur":
-            continue  # env_soa's entry is its `env` layout's
+            continue  # env_soa's entry is its `env` layout's, with `cur`'s
         entries[name] = {
             "name": name,
             "route": "cuda",
@@ -1023,6 +1113,25 @@ def rasterizer_bench(card, rk, errs, inputs):
             # into per-layer masks, so there is no library yardstick
             "library_ms": None,
         }
+    # the env and segment kernels alone, back to back, beside the store
+    # floor of their output, timed in turns in this call
+    floor = torch.empty((rb.N_ENVS, inputs.n_layers, rb.H, rb.W),
+                        dtype=torch.uint8, device="cuda")
+    b2b = back_to_back_ms({
+        "env": calls["env"], "cur": calls["cur"], "seg": calls["seg"],
+        "fill": lambda: pk.fill_kernel(floor, 0),
+        "fill_": lambda: floor.fill_(0),
+    })
+    del floor
+    for mode in ("env", "cur", "seg"):
+        print(f"{rb.KERNEL_OF[mode].NAME} kernel ({mode}) alone in "
+              f"back-to-back calls on {card}: {b2b[mode]:.4f} ms; store "
+              f"floor, an output of its size filled: K9's fill "
+              f"{b2b['fill']:.4f} ms, fill_ {b2b['fill_']:.4f} ms (kernel / "
+              f"K9 fill {b2b[mode] / b2b['fill']:.2f})")
+    entries["env_soa"]["back_to_back_ms"] = b2b["env"]
+    entries["env_soa"]["back_to_back_ms_cur"] = b2b["cur"]
+    entries["env_seg"]["back_to_back_ms"] = b2b["seg"]
     return [entries["frame_soa"], entries["env_soa"], entries["env_seg"]]
 
 

@@ -368,7 +368,8 @@ def _soa_segments(seed, b, nl, e, h, w):
 
 # (t, h, w, gran, k per layer): the three strokes, both band heights, one
 # to five lane blocks, h not a multiple of the band, an oversubscribed odd
-# budget, and 480x640, whose unsplit frames the kernels tile by 128 lanes
+# budget, and 480x640, whose unsplit frames the frame kernel tiles by 128
+# lanes and the env and segment kernels drain in 48-row chunks
 SOA_CASES = [(1, 64, 48, 8, 40), (2, 30, 200, 16, 7), (3, 100, 300, 8, 40),
              (2, 480, 640, 16, 40), (2, 128, 160, 8, 128)]
 
@@ -382,6 +383,7 @@ def _launched(kernel, soa, args, plain):
     assert got.dtype == torch.uint8 and got.shape == want.shape
     assert torch.equal(got, want)
     assert want.sum() > 0 and not want[0].any()
+    return got
 
 
 @pytest.mark.parametrize("t,h,w,gran,kl", SOA_CASES)
@@ -422,6 +424,87 @@ def test_env_seg_kernel_matches_plain(t, h, w, gran, kl, split):
     _launched(rk.env_seg_kernel, soa,
               (3, (h, w), t, gran, split and w > 128),
               rk.rasterize_env_seg_plain)
+
+
+def _env_kernel_case(name, p0, p1, draw, k, gran, h, w, split):
+    """The env (`name` "env_soa", k slots per lane block) or segment
+    ("env_seg", k slots) kernel on the bundle of per-layer segments,
+    bit-equal to its plain version; returns (bundle, output)."""
+    nl = draw.shape[1]
+    if name == "env_soa":
+        nxb = rk._n_xblocks(w) if split else 1
+        soa = rk.compact_env_soa(p0, p1, draw, k * nxb, gran, h, 2,
+                                 w=w if split else None)
+        return soa, _launched(rk.env_soa_kernel, soa,
+                              (nl, (h, w), 2, gran, split),
+                              rk.rasterize_compact_env_soa_plain)
+    soa = rk.compact_env_seg(p0[..., 0], p0[..., 1], p1[..., 0], p1[..., 1],
+                             draw, k, gran, h, 2, w=w if split else None)
+    return soa, _launched(rk.env_seg_kernel, soa,
+                          (nl, (h, w), 2, gran, split and w > 128),
+                          rk.rasterize_env_seg_plain)
+
+
+@pytest.mark.parametrize("split", [True, False])
+@pytest.mark.parametrize("name", ["env_soa", "env_seg"])
+def test_env_kernels_one_layer_env(name, split):
+    """Every live slot of every env in layer 1: layers 0 and 2 are zeros
+    (the env bundle has no per-layer counts; its empty buckets skip
+    them)."""
+    _require_cuda()
+    p0, p1, draw = _soa_segments(61, 16, 3, 40, 128, 160)
+    draw[:, [0, 2]] = False
+    _, out = _env_kernel_case(name, p0, p1, draw, 120, 16, 128, 160, split)
+    assert out[:, 1].any() and not out[:, [0, 2]].any()
+
+
+@pytest.mark.parametrize("gran", [8, 16])
+@pytest.mark.parametrize("name", ["env_soa", "env_seg"])
+def test_env_kernels_budget_reached(name, gran):
+    """A budget that counts[0] reaches in every env that draws, slots
+    dropped."""
+    _require_cuda()
+    p0, p1, draw = _soa_segments(62, 16, 3, 40, 128, 160)
+    k = 10
+    soa, _ = _env_kernel_case(name, p0, p1, draw, k, gran, 128, 160, True)
+    counts = soa[-1]
+    live = counts[0][1:]
+    want = k * rk._n_xblocks(160) if name == "env_soa" else k
+    assert int(live.min()) == int(live.max()) == want
+    assert int(counts[2 if name == "env_soa" else 3].sum()) > 0
+
+
+@pytest.mark.parametrize("name", ["env_soa", "env_seg"])
+def test_env_kernels_480x640_unsplit_gran8(name):
+    """A 480x640 unsplit gran-8 bundle: one 640-lane strip a frame, drained
+    in 48-row chunks."""
+    _require_cuda()
+    p0, p1, draw = _soa_segments(63, 8, 5, 80, 480, 640)
+    _env_kernel_case(name, p0, p1, draw, 200, 8, 480, 640, False)
+
+
+@pytest.mark.parametrize("w", [300, 640])
+def test_env_seg_kernel_wide_segments(w):
+    """Segment slots whose touch bits name three or more lane blocks: every
+    third segment crosses the frame, -50 to w + 50."""
+    _require_cuda()
+    h = 100
+    p0, p1, draw = _soa_segments(64 + w, 16, 3, 40, h, w)
+    rng = np.random.default_rng(w)
+    n = p0[:, :, ::3].shape[2]
+    y = torch.tensor(rng.uniform(0, h, (16, 3, n)), dtype=torch.float32,
+                     device="cuda")
+    p0[:, :, ::3, 0], p0[:, :, ::3, 1] = -50.0, y
+    p1[:, :, ::3, 0], p1[:, :, ::3, 1] = w + 50.0, y + 6.0
+    for gran in (8, 16):
+        soa, _ = _env_kernel_case("env_seg", p0, p1, draw, 120, gran, h, w,
+                                  True)
+        idx, bw, counts = soa[0], soa[-2], soa[-1]
+        word = torch.gather(bw, 1, idx[:, :-7].long())
+        live = (torch.arange(idx.shape[1] - 7, device="cuda")[None]
+                < counts[0][:, None])
+        blocks = sum((word >> j) & 1 for j in range(rk._n_xblocks(w)))
+        assert int(blocks[live].max()) >= 3
 
 
 def test_soa_kernels_check_their_inputs():

@@ -52,7 +52,9 @@ ms/iter, the kernel alone and its library call alone (`fill_` for the
 fills, `index_fill_` over the live frames for `dskip*`, none for `ovl`),
 each `ITERS` back-to-back calls of iteration 1's fill, its launches per
 iteration and its bound (the bytes it must write and, for `ovl`, its
-float32 operations, `helper.bound`), and `dskip*`
+float32 multiplies and adds, each rounded on its own and so one
+instruction, at the card's float32 instruction rate: `helper.bound`,
+`PEAK_F32_INSTR_PER_S`), and `dskip*`
 the share of frames written. They are not in the default list.
 
 Runs on the card and raises without a GPU. `run(device="cpu")` times the
@@ -76,7 +78,8 @@ from tinycarlo_torch import env as fenv
 from tinycarlo_torch import vector
 from tinycarlo_torch.ops import probe_kernels as pk
 from tinycarlo_torch.ops import rasterize_kernels as rk
-from tinycarlo_torch.utils.helper import bound, card_line, resolve_device
+from tinycarlo_torch.utils.helper import (PEAK_F32_INSTR_PER_S, bound,
+                                          card_line, resolve_device)
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -336,7 +339,8 @@ def probe_work(mode: str, out: torch.Tensor, live) -> tuple:
     """(bytes, float32 operations) a probe mode's function needs: its
     output written once (dskip: live (L, N) int32 read once and the live
     frames written once; ovl: its 4-byte value read once and N * 16384 * KK
-    * 2 multiply-add operations)."""
+    * 2 operations, a multiply and an add a round, rounded apart so that
+    neither fuses: `time_probe` bounds them at PEAK_F32_INSTR_PER_S)."""
     kind, kk = parse_probe(mode)
     if live is not None:
         return (live.numel() * 4
@@ -353,8 +357,9 @@ def time_probe(mode: str, inputs: Inputs, iters: int = ITERS,
     ms/iter), "median", "checksum" (the warm-up's), "launches" (kernel
     launches per iteration in the repeats), "kernel_ms" and "library_ms"
     (each alone, None for ovl's library), "bytes", "ops", "bound_ms",
-    "bound_by", "bytes_ms", "ops_ms" (`helper.bound`), "live_share" (dskip*, else None)}. The kernel launches
-    iters * (repeats + 2) times."""
+    "bound_by", "bytes_ms", "ops_ms" (`helper.bound`, the operations at the
+    float32 instruction rate), "live_share" (dskip*, else None)}. The
+    kernel launches iters * (repeats + 2) times."""
     kernel, out, launch, checksum, library, live = probe_setup(mode, inputs)
     device = out.device
 
@@ -380,7 +385,7 @@ def time_probe(mode: str, inputs: Inputs, iters: int = ITERS,
     library_ms = (ms_per_call(library, iters, device) if library is not None
                   else None)
     n_bytes, n_ops = probe_work(mode, out, live)
-    ms, by, bytes_ms, ops_ms = bound(n_bytes, n_ops)
+    ms, by, bytes_ms, ops_ms = bound(n_bytes, n_ops, PEAK_F32_INSTR_PER_S)
     return {"ms": times, "median": statistics.median(times),
             "checksum": total, "launches": launches, "kernel_ms": kernel_ms,
             "library_ms": library_ms, "bytes": n_bytes, "ops": n_ops,

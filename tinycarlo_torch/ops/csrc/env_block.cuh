@@ -1,12 +1,13 @@
 // env_block.cuh -- the one-block-per-env skeleton that the masks (masks.cu,
-// K1), rank (rank.cu, K3) and exact (exact.cu, K4) kernels share, so that
-// the three cannot drift apart.
+// K1), rank (rank.cu, K3), exact (exact.cu, K4), env (env_soa.cu, K5) and
+// segment (env_seg.cu, K7) kernels share, so that they cannot drift apart.
 //
 // One block of kEnvThreads threads per env walks the env's output in
 // whole-width row chunks (`Chunks`: the whole frame where it fits
 // kChunkBytes -- 128x160 uint8 -- else chunks of a multiple of 16 rows:
 // 48 at 480x640 uint8 and at 128x160 float32), so a chunk is one
-// contiguous range of the output. The block reads the env's live slots
+// contiguous range of the output; a chunk need not align with the
+// bundle's bands. The block reads the env's live slots
 // once and buckets their copies by layer in shared memory (`bucket`: a
 // count, a prefix and a scatter), each copy with its number of work units,
 // slabs of its box's rows; a prefix sum over the units (`block_scan`) lets
@@ -24,13 +25,25 @@
 //     -- cv2's order: the last store at a pixel is 1 + its highest layer,
 //     with no atomics; a layer with no unit costs no barrier.
 //
-// A kernel gives its copies as a type C with
-//   Units units(size_t o, int word)
-//       the work units of copy o (its offset into the (B, le) arrays) with
-//       band word `word`: n units of `rows` frame rows each from row y0
-//       (n = 0 when it lights nothing);
-//   void stamp(size_t o, int uy, int rows, int cy0, int cy1, T* chunk,
-//              T value)
+// A kernel gives its bundle's slots as a type S with
+//   bool live(int env)           the env draws (counts[0, env] > 0);
+//   int slots(int env)           the slots to read, s < slots(env);
+//   void copies(int env, int s, F f)
+//       f(l, c, word) for each copy of slot s that lies in a layer l of
+//       [0, L): c its copy number (what the copy type reads it by), word
+//       its band word ((frame*n_bands + b0) << 9 | nb, frame = l*nxb + xb;
+//       a copy whose frame is past L*nxb, as in a bundle compacted at
+//       another band height, is dropped: `word_layer`);
+//   bool layer_live(int env, int l)
+//       false where the bundle's per-layer counts say the layer draws
+//       nothing (true where it has none: the empty bucket skips it);
+// and its copies as a type C with
+//   Units units(int env, int c, int word)
+//       the work units of copy c of the env with band word `word`: n units
+//       of `rows` frame rows each from row y0 (n = 0 when it lights
+//       nothing);
+//   void stamp(int env, int c, int uy, int rows, int cy0, int cy1,
+//              T* chunk, T value)
 //       by one whole warp: chunk[(y - cy0) * w + x] = value for every lit
 //       pixel (y, x) of the unit of `rows` rows from row uy, with y in
 //       [cy0, cy1) and x an output lane.
@@ -64,13 +77,14 @@ template <typename T> struct One;
 template <> struct One<uint8_t> { static constexpr uint8_t value = 255; };
 template <> struct One<float> { static constexpr float value = 1.f; };
 
-// A launch's row chunks.
+// A launch's row chunks and bucket records.
 struct Chunks {
   int rows, n;    // rows per chunk, chunks per frame
   int buf_bytes;  // the chunk buffer, with 16 bytes of slack for the phase
+  int copies;     // the most copies an env's slots give
 };
 
-inline Chunks plan_chunks(const Geometry& g, int elem_bytes) {
+inline Chunks plan_chunks(const Geometry& g, int elem_bytes, int copies) {
   Chunks q;
   const int row_bytes = g.w * elem_bytes;
   int rows = g.h;
@@ -81,20 +95,21 @@ inline Chunks plan_chunks(const Geometry& g, int elem_bytes) {
   q.rows = rows;
   q.n = (g.h + rows - 1) / rows;
   q.buf_bytes = (rows * row_bytes + 15) / 16 * 16 + 16;
+  q.copies = copies;
   return q;
 }
 
 // Dynamic shared memory of `env_frames`: the chunk buffer, then the
-// buckets' records (kp entries each of three arrays), the layer offsets
-// and counters and the scan's per-warp sums.
+// buckets' records (q.copies entries each of three arrays), the layer
+// offsets and counters and the scan's per-warp sums.
 inline size_t env_smem(const Chunks& q, const Geometry& g) {
   return q.buf_bytes +
-         sizeof(int) * (3 * (size_t)g.kp + 2 * g.L + 1 + kEnvWarps);
+         sizeof(int) * (3 * (size_t)q.copies + 2 * g.L + 1 + kEnvWarps);
 }
 
 struct EnvShared {
   uint8_t* buf;
-  int* rec_e;  // the bucketed copies, layer l's in [off[l], off[l+1])
+  int* rec_e;  // the bucketed copies' numbers, layer l's [off[l], off[l+1])
   int* rec_p;  // the running total of their units (inclusive)
   int* rec_y;  // their units' first row y0 | rows per unit << 16
   int* off;    // L + 1
@@ -107,9 +122,9 @@ __device__ __forceinline__ EnvShared carve(uint8_t* smem, const Chunks& q,
   EnvShared s;
   s.buf = smem;
   s.rec_e = reinterpret_cast<int*>(smem + q.buf_bytes);
-  s.rec_p = s.rec_e + g.kp;
-  s.rec_y = s.rec_p + g.kp;
-  s.off = s.rec_y + g.kp;
+  s.rec_p = s.rec_e + q.copies;
+  s.rec_y = s.rec_p + q.copies;
+  s.off = s.rec_y + q.copies;
   s.cur = s.off + g.L + 1;
   s.part = s.cur + g.L;
   return s;
@@ -154,20 +169,16 @@ __device__ void block_scan(int* a, int m, int* part) {
   }
 }
 
-// Env `env`'s live copies (band words bw) bucketed by layer, each with its
+// Env `env`'s live copies (sl.copies) bucketed by layer, each with its
 // units (c.units). Called by the whole block; ends with a barrier.
-template <typename C>
-__device__ void bucket(const C& c, const Geometry& g, const int32_t* counts,
-                       const int32_t* idx, const int32_t* bw, int env,
+template <typename S, typename C>
+__device__ void bucket(const S& sl, const C& c, const Geometry& g, int env,
                        const EnvShared& sh) {
-  const int n = min(counts[env], max(g.kp - kPadSlots, 0));
-  const int32_t* ei = idx + (size_t)env * g.kp;
-  const int32_t* eb = bw + (size_t)env * g.le;
+  const int n = sl.slots(env);
   for (int l = threadIdx.x; l < g.L; l += kEnvThreads) sh.cur[l] = 0;
   __syncthreads();
   for (int s = threadIdx.x; s < n; s += kEnvThreads) {
-    const int l = word_layer(g, eb[ei[s]]);
-    if (l >= 0) atomicAdd(&sh.cur[l], 1);
+    sl.copies(env, s, [&](int l, int, int) { atomicAdd(&sh.cur[l], 1); });
   }
   __syncthreads();
   if (threadIdx.x == 0) {
@@ -181,15 +192,13 @@ __device__ void bucket(const C& c, const Geometry& g, const int32_t* counts,
   }
   __syncthreads();
   for (int s = threadIdx.x; s < n; s += kEnvThreads) {
-    const int e = ei[s];
-    const int word = eb[e];
-    const int l = word_layer(g, word);
-    if (l < 0) continue;
-    const int pos = atomicAdd(&sh.cur[l], 1);
-    const Units u = c.units((size_t)env * g.le + e, word);
-    sh.rec_e[pos] = e;
-    sh.rec_p[pos] = u.n;
-    sh.rec_y[pos] = u.y0 | (u.rows << 16);
+    sl.copies(env, s, [&](int l, int e, int word) {
+      const int pos = atomicAdd(&sh.cur[l], 1);
+      const Units u = c.units(env, e, word);
+      sh.rec_e[pos] = e;
+      sh.rec_p[pos] = u.n;
+      sh.rec_y[pos] = u.y0 | (u.rows << 16);
+    });
   }
   __syncthreads();
   block_scan(sh.rec_p, sh.off[g.L], sh.part);
@@ -216,8 +225,7 @@ __device__ void stamp_units(const C& c, const Geometry& g, int env,
     const int ry = sh.rec_y[lo], rows = ry >> 16;
     const int y = (ry & 0xFFFF) + (u - first) * rows;
     if (chunked && (y >= cy1 || y + rows <= cy0)) continue;
-    c.stamp((size_t)env * g.le + sh.rec_e[lo], y, rows, cy0, cy1, chunk,
-            value);
+    c.stamp(env, sh.rec_e[lo], y, rows, cy0, cy1, chunk, value);
   }
 }
 
@@ -254,23 +262,21 @@ __device__ __forceinline__ void row_spans(int n, F f) {
 }
 
 // The block's env (blockIdx.x): masks, or with kRank ranks, as the header
-// says. `smem` holds env_smem(q, g) bytes.
-template <bool kRank, typename T, typename C>
-__device__ __forceinline__ void env_frames(const C& c, const Geometry& g,
-                                           const int32_t* counts,
-                                           const int32_t* idx,
-                                           const int32_t* bw, T* out,
+// says, of slots `sl` and copies `c`. `smem` holds env_smem(q, g) bytes.
+template <bool kRank, typename S, typename C, typename T>
+__device__ __forceinline__ void env_frames(const S& sl, const C& c,
+                                           const Geometry& g, T* out,
                                            const Chunks& q, T one,
                                            uint8_t* smem) {
   const EnvShared sh = carve(smem, q, g);
   const int env = blockIdx.x;
-  const bool env_live = counts[env] > 0;
+  const bool env_live = sl.live(env);
   if (env_live) {
     for (int i = threadIdx.x; i < q.buf_bytes / 16; i += kEnvThreads) {
       reinterpret_cast<uint4*>(sh.buf)[i] = make_uint4(0, 0, 0, 0);
     }
     __syncthreads();
-    bucket(c, g, counts, idx, bw, env, sh);
+    bucket(sl, c, g, env, sh);
   }
   const int frames = kRank ? 1 : g.L;
   for (int it = 0; it < frames * q.n; ++it) {
@@ -287,7 +293,7 @@ __device__ __forceinline__ void env_frames(const C& c, const Geometry& g,
     const int l0 = kRank ? 0 : f, l1 = kRank ? g.L : f + 1;
     bool stamped = false;  // the same in every thread: shared values only
     for (int l = l0; l < l1; ++l) {
-      if (!env_live || counts[(4 + l) * g.B + env] <= 0) continue;
+      if (!env_live || !sl.layer_live(env, l)) continue;
       const int jb = sh.off[l], je = sh.off[l + 1];
       const int ub = jb > 0 ? sh.rec_p[jb - 1] : 0;
       const int ue = je > 0 ? sh.rec_p[je - 1] : 0;
@@ -308,33 +314,74 @@ __device__ __forceinline__ void env_frames(const C& c, const Geometry& g,
   }
 }
 
-// The fast stroke's copies (`compact_env_idx_soa`; masks.cu, rank.cu):
-// each copy's box (stamp.cuh `copy_box`, padded by `pad`: the stroke's
-// reach + kBoxMargin) cut into units of about kUnitPixels pixels, walked
-// with lanes on neighbouring columns, stepping (row, column) without a
-// division; each pixel is tested with `window_hit` on the plain version's
-// apx / apy floats (integer valued, exact).
+// The slots of the production bundles (`compact_env_idx_soa`, K1 and K3;
+// `compact_env_exact_soa`, K4): counts (4+L, B) rows [live, one-band,
+// short, dropped, per-layer...], idx (B, kp) slot -> copy on the (B, le)
+// copy axis, its last kPadSlots slots the TPU's loop padding, and a band
+// word per copy in `bw`. A copy's number is its place on the copy axis.
+struct IdxSlots {
+  const Geometry& g;
+  const int32_t* counts;
+  const int32_t* idx;
+  const int32_t* bw;
+
+  __device__ __forceinline__ bool live(int env) const {
+    return counts[env] > 0;
+  }
+  __device__ __forceinline__ int slots(int env) const {
+    return min(counts[env], max(g.kp - kPadSlots, 0));
+  }
+  template <typename F>
+  __device__ __forceinline__ void copies(int env, int s, F f) const {
+    const int e = idx[(size_t)env * g.kp + s];
+    const int word = bw[(size_t)env * g.le + e];
+    const int l = word_layer(g, word);
+    if (l >= 0) f(l, e, word);
+  }
+  __device__ __forceinline__ bool layer_live(int env, int l) const {
+    return counts[(4 + l) * g.B + env] > 0;
+  }
+};
+
+// The fast stroke's copies at `Gran`-row bands (masks.cu, rank.cu at 16;
+// env_soa.cu, env_seg.cu at 8 or 16): each copy's box (stamp.cuh
+// `copy_box`, padded by `pad`: the stroke's reach + kBoxMargin) cut into
+// units of about kUnitPixels pixels, walked with lanes on neighbouring
+// columns, stepping (row, column) without a division; each pixel is
+// tested with `window_hit` on the plain version's apx / apy floats
+// (integer valued, exact). The pixel row is window-relative, a tail band
+// in its own Gran-row window (`_tier_loops`, `_tier_loops_seg`), or with
+// `Absolute` the stacked strip row minus ay (`_kernel_env`): the two give
+// the same bits. Copy c of an env is entry env*le + c of the SoA arrays;
+// `box_units` and `stamp_copy` take a copy's payload as given, for
+// bundles whose copies are not entries (env_seg.cu).
+template <int Gran = kGran, bool Absolute = false>
 struct FastCopies {
   const Params& p;
   float pad;
 
-  __device__ __forceinline__ Units units(size_t o, int word) const {
-    const CopyBox b = copy_box(p, word, p.ax[o], p.ay[o], p.abx[o],
-                               p.aby[o], pad);
+  __device__ __forceinline__ Units box_units(int word, float ax, float ay,
+                                             float abx, float aby) const {
+    const CopyBox b = copy_box<Gran>(p, word, ax, ay, abx, aby, pad);
     const int nx = b.x1 - b.x0, ny = b.y1 - b.y0;
     if (nx <= 0 || ny <= 0) return {0, 0, 1};
     const int rows = max(1, kUnitPixels / nx);
     return {(ny + rows - 1) / rows, b.y0, rows};
   }
 
+  __device__ __forceinline__ Units units(int env, int c, int word) const {
+    const size_t o = (size_t)env * p.le + c;
+    return box_units(word, p.ax[o], p.ay[o], p.abx[o], p.aby[o]);
+  }
+
   template <typename T>
-  __device__ __forceinline__ void stamp(size_t o, int uy, int rows, int cy0,
-                                        int cy1, T* chunk, T value) const {
+  __device__ __forceinline__ void stamp_copy(int word, float ax, float ay,
+                                             float abx, float aby, float inv,
+                                             int uy, int rows, int cy0,
+                                             int cy1, T* chunk,
+                                             T value) const {
     const int lane = threadIdx.x & 31;
-    const int word = p.bw[o];
-    const float ax = p.ax[o], ay = p.ay[o];
-    const float abx = p.abx[o], aby = p.aby[o], inv = p.inv[o];
-    const CopyBox b = copy_box(p, word, ax, ay, abx, aby, pad);
+    const CopyBox b = copy_box<Gran>(p, word, ax, ay, abx, aby, pad);
     const int nx = b.x1 - b.x0;
     const int y0 = max(uy, cy0);
     const int y1 = min(min(b.y1, uy + rows), cy1);
@@ -349,10 +396,12 @@ struct FastCopies {
       const int y = y0 + r, x = b.x0 + c;
       const int rr = y - b.wrow0;
       float apy;
-      if (rr < p.win) {
+      if (Absolute) {  // the stacked strip row y0s + rr, minus ay
+        apy = ((float)rr + (float)b.y0s) - ay;
+      } else if (rr < p.win) {
         apy = (float)rr - ayw;
-      } else {  // a tail band, in its own 16-row window
-        const int band_row = rr & ~(kGran - 1);
+      } else {  // a tail band, in its own Gran-row window
+        const int band_row = rr & ~(Gran - 1);
         apy = (float)(rr - band_row) - (ay - (float)(b.y0s + band_row));
       }
       if (window_hit((float)x - ax, apy, abx, aby, inv, p)) {
@@ -365,6 +414,15 @@ struct FastCopies {
         ++r;
       }
     }
+  }
+
+  template <typename T>
+  __device__ __forceinline__ void stamp(int env, int c, int uy, int rows,
+                                        int cy0, int cy1, T* chunk,
+                                        T value) const {
+    const size_t o = (size_t)env * p.le + c;
+    stamp_copy(p.bw[o], p.ax[o], p.ay[o], p.abx[o], p.aby[o], p.inv[o], uy,
+               rows, cy0, cy1, chunk, value);
   }
 };
 

@@ -35,8 +35,9 @@
 // `rasterize_masks_exact_env_plain` bit for bit by construction.
 //
 // Design. The one-block-per-env skeleton of env_block.cuh, shared with
-// masks.cu and rank.cu: one block of 128 threads per env buckets the
-// env's live copies by layer once and walks the items (layer, row chunk)
+// masks.cu, rank.cu, env_soa.cu and env_seg.cu: one block of 128 threads
+// per env buckets the env's live copies by layer once and walks the items
+// (layer, row chunk)
 // -- the whole 128x160 uint8 frame, 48-row chunks at 480x640 and for
 // float32 -- stamping into a chunk buffer in shared memory that leaves
 // through store.cuh's 16-byte streaming stores. A copy's box
@@ -193,7 +194,8 @@ struct ExactCopies {
                     (float)(cy1 - cy0), p.pad);
   }
 
-  __device__ __forceinline__ Units units(size_t o, int word) const {
+  __device__ __forceinline__ Units units(int env, int e, int word) const {
+    const size_t o = (size_t)env * p.le + e;
     const int c0 = f[22][o], c1 = f[23][o];
     const CopyBox b = box(word, lo16(c0), hi16(c0), lo16(c1), hi16(c1));
     const int nx = b.x1 - b.x0, ny = b.y1 - b.y0;
@@ -202,8 +204,10 @@ struct ExactCopies {
   }
 
   template <typename T>
-  __device__ __forceinline__ void stamp(size_t o, int uy, int rows, int cy0,
-                                        int cy1, T* chunk, T value) const {
+  __device__ __forceinline__ void stamp(int env, int e, int uy, int rows,
+                                        int cy0, int cy1, T* chunk,
+                                        T value) const {
+    const size_t o = (size_t)env * p.le + e;
     const int lane = threadIdx.x & 31;
     // field i in lane i, broadcast
     const int mine = lane < kFields ? f[lane][o] : 0;
@@ -295,14 +299,15 @@ exact_kernel(ExactParams p, T* __restrict__ out, Chunks q) {
   for (int i = threadIdx.x; i < kFields; i += kEnvThreads) fields[i] = p.f[i];
   for (int i = threadIdx.x; i < kMaxCap; i += kEnvThreads) cap[i] = p.cap[i];
   __syncthreads();
-  env_frames<false>(ExactCopies{p, fields, cap}, p, p.counts, p.idx,
-                    p.f[kFields - 1], out, q, One<T>::value, smem);
+  env_frames<false>(IdxSlots{p, p.counts, p.idx, p.f[kFields - 1]},
+                    ExactCopies{p, fields, cap}, p, out, q, One<T>::value,
+                    smem);
 }
 
 template <typename T>
 int launch(const ExactParams& p, T* out, cudaStream_t stream) {
   if ((long long)p.B * p.L * p.h * p.w == 0) return (int)cudaGetLastError();
-  const Chunks q = plan_chunks(p, (int)sizeof(T));
+  const Chunks q = plan_chunks(p, (int)sizeof(T), p.kp);
   const size_t smem = env_smem(q, p);
   cudaError_t err = cudaFuncSetAttribute(
       exact_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -54,7 +54,7 @@ frame_soa_kernel(Params p, uint8_t* __restrict__ out, int strip_bytes,
   const size_t f = (size_t)t.env * p.L + t.l;  // the (env, layer) frame
   const size_t o = f * p.le;                   // its k slots
   soa_tile(
-      p, t, true, p.counts[f], out, smem, strip_bytes,
+      p, t, p.counts[f], out, smem, strip_bytes,
       [&](int s) {
         return word_live(p.bw[o + s]) &&
                touches(p.ax[o + s], p.abx[o + s], pad, t);
@@ -63,9 +63,8 @@ frame_soa_kernel(Params p, uint8_t* __restrict__ out, int strip_bytes,
         const size_t q = o + s;
         const int word = p.bw[q];
         const int b0 = word >> kNbShift;
-        stamp_tile<Gran, true>(p, p, t, p.ax[q], p.ay[q], p.abx[q],
-                               p.aby[q], p.inv[q], b0, word & kNbMask, b0,
-                               strip);
+        stamp_tile<Gran>(p, p, t, p.ax[q], p.ay[q], p.abx[q], p.aby[q],
+                         p.inv[q], b0, word & kNbMask, b0, strip);
       });
 }
 

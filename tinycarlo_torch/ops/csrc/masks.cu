@@ -17,13 +17,13 @@
 // never written out; layers with counts[4+l] == 0 and envs with no live
 // slot are written as zeros.
 //
-// Design. The one-block-per-env skeleton of env_block.cuh, shared with rank.cu
-// and exact.cu: one block of 128 threads per env walks the env's work items
-// (layer, row chunk) in order: all w lanes of as many rows as fit 32 KB (the
-// whole frame at 128x160 uint8, 20 KB; 48-row chunks at 480x640 uint8 or
-// 128x160 float32), so a chunk is one contiguous range of out[env, l]. The
-// block reads the env's live slots once and buckets their copies by layer in
-// shared memory, each copy with its number of work units: its box (stamp.cuh
+// Design. The one-block-per-env skeleton of env_block.cuh, shared with rank.cu,
+// exact.cu, env_soa.cu and env_seg.cu: one block of 128 threads per env walks
+// the env's work items (layer, row chunk) in order: all w lanes of as many
+// rows as fit 32 KB (the whole frame at 128x160 uint8, 20 KB; 48-row chunks
+// at 480x640 uint8 or 128x160 float32), so a chunk is one contiguous range
+// of out[env, l]. The block reads the env's live slots once and buckets
+// their copies by layer in shared memory, each copy with its number of work units: its box (stamp.cuh
 // `copy_box`: the segment's bounding box padded by the stroke's reach, clipped
 // to the copy's bands and lanes) cut into slabs of rows. The block's 4 warps
 // take a layer's units round robin; a warp walks its unit's pixels
@@ -64,14 +64,14 @@ template <typename T>
 __global__ void __launch_bounds__(kEnvThreads)
 masks_kernel(Params p, T* __restrict__ out, Chunks q, float pad) {
   extern __shared__ __align__(16) uint8_t smem[];
-  env_frames<false>(FastCopies{p, pad}, p, p.counts, p.idx, p.bw, out, q,
-                    One<T>::value, smem);
+  env_frames<false>(IdxSlots{p, p.counts, p.idx, p.bw}, FastCopies<>{p, pad},
+                    p, out, q, One<T>::value, smem);
 }
 
 template <typename T>
 int launch(const Params& p, T* out, cudaStream_t stream) {
   if ((long long)p.B * p.L * p.h * p.w == 0) return (int)cudaGetLastError();
-  const Chunks q = plan_chunks(p, (int)sizeof(T));
+  const Chunks q = plan_chunks(p, (int)sizeof(T), p.kp);
   const size_t smem = env_smem(q, p);
   cudaError_t err = cudaFuncSetAttribute(
       masks_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -29,10 +29,12 @@
 //
 // Bound on the H100 at the benchmark's shape (N = 4096, 5 x 128 x 160):
 // the output written once, 419.4 MB -> 0.1252 ms at 3.35 TB/s, against
-// N * 16384 * KK * 2 float32 operations at 67 TFLOP/s (KK = 64: 8.6 G ->
-// 0.128 ms; KK = 512: 1.03 ms). The peak counts a fused multiply-add as
-// two operations; with -fmad=false each of them is an instruction, so the
-// chain runs at most at half that peak.
+// N * 16384 * KK * 2 float32 operations. The multiply and the add are
+// rounded apart (a fused multiply-add changes the result), so each is an
+// instruction, and the card issues 132 SMs x 128 lanes x 1.98 GHz =
+// 3.345e13 of them a second (helper.PEAK_F32_INSTR_PER_S; the 67 TFLOP/s
+// peak counts a fused multiply-add as two): KK = 64, 8.6 G -> 0.2568 ms;
+// KK = 512, 68.7 G -> 2.0541 ms.
 #include "store.cuh"
 
 namespace {

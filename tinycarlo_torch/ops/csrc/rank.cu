@@ -19,8 +19,9 @@
 // rank_from_masks of the masks kernel's output on the same bundle.
 //
 // Design. The one-block-per-env skeleton of env_block.cuh, shared with
-// masks.cu and exact.cu, in its rank shape: one block of 128 threads per env
-// buckets the env's live copies by layer once, with masks.cu's boxes and
+// masks.cu, exact.cu, env_soa.cu and env_seg.cu, in its rank shape: one
+// block of 128 threads per env buckets the env's live copies by layer
+// once, with masks.cu's boxes and
 // units (`FastCopies`), and walks the env's (h, w) map in whole-width
 // row chunks in shared memory (the whole 20 KB map at 128x160; 48-row chunks
 // at 480x640). Into each chunk it stamps layer 0's units, then, after a
@@ -49,13 +50,13 @@ using namespace tc;
 __global__ void __launch_bounds__(kEnvThreads)
 rank_kernel(Params p, uint8_t* __restrict__ out, Chunks q, float pad) {
   extern __shared__ __align__(16) uint8_t smem[];
-  env_frames<true>(FastCopies{p, pad}, p, p.counts, p.idx, p.bw, out, q,
-                   (uint8_t)0, smem);
+  env_frames<true>(IdxSlots{p, p.counts, p.idx, p.bw}, FastCopies<>{p, pad},
+                   p, out, q, (uint8_t)0, smem);
 }
 
 int launch(const Params& p, uint8_t* out, cudaStream_t stream) {
   if ((long long)p.B * p.h * p.w == 0) return (int)cudaGetLastError();
-  const Chunks q = plan_chunks(p, 1);
+  const Chunks q = plan_chunks(p, 1, p.kp);
   const size_t smem = env_smem(q, p);
   cudaError_t err = cudaFuncSetAttribute(
       rank_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

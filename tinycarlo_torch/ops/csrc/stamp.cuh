@@ -1,10 +1,11 @@
 // stamp.cuh -- what the port's kernels share: the frame geometry, the
 // band-word decode, the fast stroke's bundle and `window_hit` stamp, and a
 // copy's box. One copy, so the kernels cannot drift apart. masks.cu,
-// rank.cu and exact.cu read the production bundles at 16-row bands, one
-// block per env (env_block.cuh); frame_soa.cu, env_soa.cu and env_seg.cu
-// the older SoA bundles at 8- or 16-row bands, one block per 128-lane tile
-// of a frame (`Tile`, `stamp_tile`, `soa_tile` below).
+// rank.cu and exact.cu read the production bundles at 16-row bands,
+// env_soa.cu and env_seg.cu the older env-merged and segment bundles at 8-
+// or 16-row bands, one block per env (env_block.cuh); frame_soa.cu the
+// per-frame bundle, one block per 128-lane tile of a frame (`Tile`,
+// `stamp_tile`, `soa_tile` below).
 //
 // Bundles (ops/rasterize_kernels.py). Both compactions give counts (4+L, B)
 // int32 rows [live, one-band, short, dropped, per-layer...], an idx (B, kp)
@@ -120,16 +121,18 @@ __device__ __forceinline__ bool window_hit(float apx, float apy, float abx,
 // The pixels a fast-stroke copy can light: its segment's bounding box,
 // widened by `pad` (the stroke's reach, sqrt(max(lat2, cap2)), 0 for the
 // thickness-1 Bresenham, plus kBoxMargin), clipped to the rows it stamps
-// (its window and tail bands, rows [b0*16, b0*16 + max(nb, win/16)*16)
-// of its frame, and [0, h)) and to the lanes of its lane block that the
+// (its window and tail bands of Gran rows, rows [b0*Gran, b0*Gran +
+// max(nb, win/Gran)*Gran) of its frame, and [0, h)) and to the lanes of
+// its lane block that the
 // frame has ([0, min(wb, w - xb*128)) block-local). A lit pixel lies
 // within the reach of the segment: `window_hit`'s clamped t keeps t*ab
 // between 0 and ab, and d2 <= r2 bounds |dx| and |dy| by the reach; the
 // Bresenham's step and probe stay within [0, ab]. Float rounding moves
 // a computed distance by far less than the margin (below 0.3 px at the
 // compaction's 1e6 px clamp). rasterize_kernels.copy_box is the same rule
-// in PyTorch, and tests/test_torch_masks_box.py checks that no lit pixel
-// of the plain version falls outside it. The exact stroke's box
+// in PyTorch, and tests/test_torch_masks_box.py (masks, rank) and
+// test_torch_soa_box.py (env, segment) check that no lit pixel of the
+// plain versions falls outside it. The exact stroke's box
 // (exact.cu) is the same rule over the segment between its cap centres,
 // padded by the stroke's extent (rasterize_kernels.exact_copy_box;
 // tests/test_torch_exact_box.py).
@@ -139,12 +142,14 @@ struct CopyBox {
   int x0, x1;  // block-local lanes [x0, x1)
   int y0, y1;  // frame rows [y0, y1)
   int xoff;    // the lane block's first output lane, xb*128
-  int wrow0;   // the window's first frame row, b0*16
-  int y0s;     // the window's first stacked strip row, rowband*16
+  int wrow0;   // the window's first frame row, b0*Gran
+  int y0s;     // the window's first stacked strip row, rowband*Gran
 };
 
-// The box of a copy with band word `word` and payload (ax, ay, abx, aby):
-// empty (x1 <= x0 or y1 <= y0) when it lights nothing here.
+// The box of a copy with band word `word` and payload (ax, ay, abx, aby)
+// at Gran-row bands: empty (x1 <= x0 or y1 <= y0) when it lights nothing
+// here.
+template <int Gran = kGran>
 __device__ __forceinline__ CopyBox copy_box(const Geometry& g, int word,
                                             float ax, float ay, float abx,
                                             float aby, float pad) {
@@ -152,10 +157,10 @@ __device__ __forceinline__ CopyBox copy_box(const Geometry& g, int word,
   const int nb = word & kNbMask;
   const int rowband = word >> kNbShift;
   const int frame = rowband / g.n_bands;
-  b.wrow0 = (rowband - frame * g.n_bands) * kGran;
-  b.y0s = rowband * kGran;
+  b.wrow0 = (rowband - frame * g.n_bands) * Gran;
+  b.y0s = rowband * Gran;
   b.xoff = (frame % g.nxb) * kXB;
-  const int rows = max(nb, g.win / kGran) * kGran;
+  const int rows = max(nb, g.win / Gran) * Gran;
   // the segment in block-local lanes and frame rows
   const float ayf = ay - (float)(frame * g.hp);
   const float bx = ax + abx, by = ayf + aby;
@@ -209,22 +214,18 @@ __device__ void store_rows(typename Conv::T* dst, const uint8_t* strip,
   }
 }
 
-// ---- The older SoA bundles: one block per 128-lane tile of a frame ----
+// ---- The per-frame bundle: one block per 128-lane tile of a frame ----
 //
-// frame_soa.cu, env_soa.cu and env_seg.cu keep a tile of a frame in
-// shared memory, at most 128 lanes wide, so that any frame fits (a whole
-// 480x640 frame is 307 KB of uint8, more than a block has): block
-// (env, l, T) owns the output lanes [T*128, min(w, T*128 + 128)) of layer
-// l, T < ceil(w/128). In the lane-split layout (nxb > 1) a tile is lane
-// block xb = T of stacked frame l*nxb + xb, whose slots carry block-local
-// lanes; unsplit (nxb = 1) it is lanes [T*128, ...) of stacked frame l,
-// whose slots carry frame lanes.
+// Only frame_soa.cu (K6) still runs this design, and its redesign on
+// env_block.cuh deletes it: `Tile`, `block_tile`, `touches`, `stamp_tile`,
+// `soa_tile`, `tile_smem`, `launch_tiles`, `store_rows` and `MaskU8`. A
+// block keeps a tile of a frame in shared memory, at most 128 lanes wide:
+// block (env, l, T) owns the output lanes [T*128, min(w, T*128 + 128)) of
+// layer l, T < ceil(w/128) (frame_soa.cu's bundle is never lane-split:
+// its slots carry frame lanes).
 struct Tile {
   int env, l;
-  int xb;     // the tile's lane block (0 unsplit)
-  int frame;  // its stacked frame in the slots' band words: l*nxb + xb
-  int xo;     // its first lane in the slots' lane coordinates
-  int x0;     // its first lane in the output frame
+  int x0;     // its first lane
   int cols;   // its lanes
   int tw;     // the strip's row stride, min(w, 128)
 };
@@ -239,40 +240,35 @@ __device__ __forceinline__ Tile block_tile(const Geometry& g) {
   Tile t;
   t.env = f / g.L;
   t.l = f - t.env * g.L;
-  t.xb = g.nxb > 1 ? T : 0;
-  t.frame = t.l * g.nxb + t.xb;
-  t.xo = g.nxb > 1 ? 0 : T * kXB;
   t.x0 = T * kXB;
   t.cols = min(kXB, g.w - t.x0);
   t.tw = min(g.w, kXB);
   return t;
 }
 
-// Whether a slot whose segment spans the lanes [ax, ax + abx] (slot
-// coordinates) can light a lane of the tile: that range widened by `pad`,
-// the stroke's reach plus a margin, meets the tile's. A pixel farther
-// than the reach from the range is never lit (|dx| alone exceeds it), so
-// skipping the slot changes no output.
+// Whether a slot whose segment spans the lanes [ax, ax + abx] can light a
+// lane of the tile: that range widened by `pad`, the stroke's reach plus a
+// margin, meets the tile's. A pixel farther than the reach from the range
+// is never lit (|dx| alone exceeds it), so skipping the slot changes no
+// output.
 __device__ __forceinline__ bool touches(float ax, float abx, float pad,
                                         const Tile& t) {
   const float bx = ax + abx;
-  return fmaxf(ax, bx) + pad >= (float)t.xo &&
-         fminf(ax, bx) - pad <= (float)(t.xo + t.cols - 1);
+  return fmaxf(ax, bx) + pad >= (float)t.x0 &&
+         fminf(ax, bx) - pad <= (float)(t.x0 + t.cols - 1);
 }
 
 // Stamp one fast-stroke slot into a tile's strip with all threads: the
 // window at row band `rowband` of the slot's stacked strip and, when nb >
 // win/Gran, the tail bands through band nb of the window, over the
 // tile's lanes; row rr from the window start lands on strip row b0*Gran +
-// rr, b0 the band within the frame. With `Absolute` the pixel row is
-// taken as `_kernel` and `_kernel_env` take it, apy = (rr + y0) - ay;
-// otherwise window-relative, a tail band in its own Gran-row window, as
-// `_tier_loops_seg` (and env_block.cuh's `FastCopies`). Both are exact
-// (integer-valued floats below 2^24). Rows outside the strip's [0, hp)
-// are never written: a compaction's own bands always fit, but the bundle
-// does not carry its band height, and one compacted at another gran would
-// reach past the strip. No barrier: stores of 1 are idempotent.
-template <int Gran, bool Absolute, typename Stroke>
+// rr, b0 the band within the frame. The pixel row is taken as `_kernel`
+// takes it, apy = (rr + y0) - ay (exact: integer-valued floats below
+// 2^24). Rows outside the strip's [0, hp) are never written: a
+// compaction's own bands always fit, but the bundle does not carry its
+// band height, and one compacted at another gran would reach past the
+// strip. No barrier: stores of 1 are idempotent.
+template <int Gran, typename Stroke>
 __device__ __forceinline__ void stamp_tile(const Geometry& g,
                                            const Stroke& s, const Tile& t,
                                            float ax, float ay, float abx,
@@ -286,34 +282,26 @@ __device__ __forceinline__ void stamp_tile(const Geometry& g,
   for (int i = threadIdx.x; i < rows * t.cols; i += blockDim.x) {
     const int rr = i / t.cols;
     const int x = i - rr * t.cols;
-    float apy;
-    if (Absolute) {
-      apy = ((float)rr + (float)y0) - ay;
-    } else if (rr < g.win) {
-      apy = (float)rr - (ay - (float)y0);
-    } else {
-      const int band_row = (rr / Gran) * Gran;
-      apy = (float)(rr - band_row) - (ay - (float)(y0 + band_row));
-    }
-    if (window_hit((float)(t.xo + x) - ax, apy, abx, aby, inv, s)) {
+    const float apy = ((float)rr + (float)y0) - ay;
+    if (window_hit((float)(t.x0 + x) - ax, apy, abx, aby, inv, s)) {
       base[rr * t.tw + x] = 1;
     }
   }
 }
 
 // One block's tile of a (B, L, h, w) uint8 0/255 masks output. Zeros
-// unless `live` and n > 0; otherwise the block zeroes its [hp][tw] strip
+// unless n > 0; otherwise the block zeroes its [hp][tw] strip
 // (dynamic shared memory `smem`, the slot list after its `strip_bytes`),
 // lists the slots s < n for which pick(s) holds, stamps each listed slot
 // with stamp(s, strip), and writes rows [0, h) of its lanes out.
 template <typename Pick, typename Stamp>
-__device__ void soa_tile(const Geometry& g, const Tile& t, bool live, int n,
+__device__ void soa_tile(const Geometry& g, const Tile& t, int n,
                          uint8_t* out, uint8_t* smem, int strip_bytes,
                          Pick pick, Stamp stamp) {
   __shared__ int n_list;
   uint8_t* dst = out + ((size_t)t.env * g.L + t.l) * g.h * g.w + t.x0;
   const bool vec = (g.w % 4 == 0) && (t.cols % 4 == 0);
-  if (!live || n <= 0) {
+  if (n <= 0) {
     store_rows<MaskU8>(dst, nullptr, t.tw, g, t.cols, vec);
     return;
   }

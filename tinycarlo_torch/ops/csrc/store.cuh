@@ -1,5 +1,6 @@
-// store.cuh -- the 16-byte store path that the masks kernel's epilogue
-// (masks.cu, K1) and the output-floor probes (probe_ovl.cu, probe_fill.cu,
+// store.cuh -- the 16-byte store path that the epilogue of env_block.cuh's
+// kernels (masks.cu, rank.cu, exact.cu, env_soa.cu, env_seg.cu; K1, K3-K5,
+// K7) and the output-floor probes (probe_ovl.cu, probe_fill.cu,
 // probe_skip.cu; K8-K10) share.
 //
 // A contiguous byte range is written by a set of threads: single bytes up

@@ -813,15 +813,16 @@ def _window_hits(bands, payload, wb: int, gran: int, win: int, stroke,
         yield env, frame, row, hit
 
 
-# The masks kernel's box margin around the stroke's reach (kBoxMargin in
+# The box margin around the stroke's reach (kBoxMargin in
 # ops/csrc/stamp.cuh).
 _BOX_MARGIN = 1.0
 
 
 def box_pad(thickness: int) -> float:
-    """The masks kernel's box padding at a line thickness: the fast
+    """The fast-stroke kernels' box padding at a line thickness: the
     stroke's reach, sqrt(max(lat2, cap2)) in float32 (0 for the
-    thickness-1 Bresenham), plus `_BOX_MARGIN`, as masks.cu computes it."""
+    thickness-1 Bresenham), plus `_BOX_MARGIN`, as env_block.cuh's
+    `fast_pad` computes it."""
     stroke = _stroke_params(thickness)
     if stroke[0] == "bres":
         return _BOX_MARGIN
@@ -832,12 +833,14 @@ def box_pad(thickness: int) -> float:
 def copy_box(x0, y0, x1, y1, pad: float, nb, b0, xb,
              resolution: Tuple[int, int], gran: int = _GRAN,
              split: bool = True):
-    """The pixels a copy can light, by the rule of the masks kernel's
-    stamps (ops/csrc/stamp.cuh `copy_box`): its segment (x0, y0)-(x1, y1)
-    -- lanes of its lane block `xb`, rows of its frame, float32 -- widened
-    by `pad`, clipped to the rows it stamps (its window and tail bands,
-    [b0*gran, b0*gran + max(nb, win/gran)*gran), and [0, h)) and to its
-    block's lanes that the frame has ([0, min(wb, w - xb*128))).
+    """The pixels a copy can light, by the rule of the box-clipped stamps
+    of the masks, rank, env and segment kernels (ops/csrc/stamp.cuh
+    `copy_box`): its segment (x0, y0)-(x1, y1) -- lanes of its lane block
+    `xb`, rows of its frame, float32 -- widened by `pad`, clipped to the
+    rows it stamps (its window and tail bands of `gran` rows, [b0*gran,
+    b0*gran + max(nb, win/gran)*gran), and [0, h)) and to its block's
+    lanes that the frame has ([0, min(wb, w - xb*128)); one block of
+    width w unless `split`).
 
     With pad = `box_pad(t)` it is the kernel's box (the same float32
     operations); with the bare stroke radius it is the least box, which
@@ -1152,9 +1155,26 @@ def rasterize_env_seg_plain(
     relative pixel rows. A layer with no eligible segment (counts[4+l] ==
     0) has no live slot, so its frame is zeros as the Pallas kernel
     writes it."""
-    idx, ax, ay, abx, aby, inv, bw, counts = soa
     geometry = _frame_geometry(resolution, gran, split)
     n_bands, hp, win, nxb, wb = geometry
+    copies, n, payload = _seg_copies(soa, geometry)
+    hits = _window_hits(
+        _slot_bands(copies, n, n_bands, win, gran, wb), payload, wb, gran,
+        win, _stroke_params(thickness), absolute=False, device=copies.device,
+    )
+    return _masks_from_hits(hits, copies.shape[0], n_layers, resolution,
+                            torch.uint8, copies.device, geometry)
+
+
+def _seg_copies(soa, geometry):
+    """The copies that `rasterize_env_seg_plain` stamps from a
+    `compact_env_seg` bundle, one per (slot, touched lane block): (words
+    (B, k*nxb) with copy s*nxb + xb's band word ((enc + xb*n_bands) << 9 |
+    nb, nb = 0 where bit xb is clear), the live copies per env
+    counts[0]*nxb, and payload(env, c), the copy's segment moved into its
+    block's lanes and stacked strip rows: ax - xb*128, ay + xb*hp)."""
+    idx, ax, ay, abx, aby, inv, bw, counts = soa
+    n_bands, hp, _, nxb, _ = geometry
     bsz = ax.shape[0]
     k = idx.shape[1] - 7
     seg = idx[:, :k].long()
@@ -1175,13 +1195,7 @@ def rasterize_env_seg_plain(
                 ay[env, e] + (x * hp).to(torch.float32),
                 abx[env, e], aby[env, e], inv[env, e])
 
-    hits = _window_hits(
-        _slot_bands(copies, counts[0] * nxb, n_bands, win, gran, wb),
-        payload, wb, gran, win, _stroke_params(thickness), absolute=False,
-        device=ax.device,
-    )
-    return _masks_from_hits(hits, bsz, n_layers, resolution, torch.uint8,
-                            ax.device, geometry)
+    return copies, counts[0] * nxb, payload
 
 
 def _window_hit_plain(apx, apy, abx, aby, inv, stroke):

@@ -22,6 +22,11 @@ PEAK_F32_PER_S = 67e12
 # int32 rate: 132 SMs x 64 INT32 lanes per SM per clock (half the float32
 # lanes; NVIDIA's Hopper architecture white paper) x 1.98 GHz boost.
 PEAK_I32_PER_S = 132 * 64 * 1.98e9
+# float32 instruction rate: 132 SMs x 128 FP32 lanes x 1.98 GHz, one
+# multiply or one add a lane a clock. PEAK_F32_PER_S counts a fused
+# multiply-add as two operations; work whose multiply and add are rounded
+# apart (built with -fmad=false) issues each as an instruction of its own.
+PEAK_F32_INSTR_PER_S = 132 * 128 * 1.98e9
 
 
 def getenv(key: str) -> bool:
