@@ -24,10 +24,10 @@ any failed check:
    `compact_env_soa` and `compact_env_seg` layouts) on random bundles
    (t = 1, 2, 3; gran 8 and 16; 1, 2, 3 and 5 lane blocks; 30x200 to
    480x640; split and unsplit; odd and oversubscribed budgets; an empty
-   env), the env and segment kernels also on edge bundles (every live
-   slot in one layer, a budget counts[0] reaches, slots over 3-5 lane
-   blocks at w = 300 and 640). Bit-equality is required: the kernels are
-   built with -fmad=false.
+   env) and on edge bundles (every live slot in one layer, a budget
+   counts[0] reaches, slots over 3-5 lane blocks at w = 300 and 640; the
+   frame kernel on the same segments per (env, layer) frame).
+   Bit-equality is required: the kernels are built with -fmad=false.
 4. probe kernels: the output-floor probes of benchmarks/exp_r2.py (K8
    ovl, K9 fill, K10 skip) against their plain versions, bit for bit, on
    outputs pre-filled with a sentinel: N = 1, 7 and 4096 envs; KK = 0, 1,
@@ -42,10 +42,10 @@ any failed check:
    kernel once a render and each compaction mode none, every layout's
    masks with the same checksum, nothing dropped); then on each kernel
    mode's 4096-env bundle the kernel against its plain version, both
-   timed, and its bound; the env (`env`, `cur`) and segment (`seg`)
-   kernels alone in back-to-back calls beside K9's fill and `fill_` of an
-   output of their size (the store floor), as phase 7 times the masks
-   kernel.
+   timed, and its bound; the frame (`full`), env (`env`, `cur`) and
+   segment (`seg`) kernels alone in back-to-back calls beside K9's fill
+   and `fill_` of an output of their size (the store floor), as phase 7
+   times the masks kernel.
 6. probe modes: the same benchmark's probe modes ovl0 ovl64 ovl512
    dmaflat dmaflat16 dmaf32 dma dma4 dskip dskipall at 4096 envs: one
    launch an iteration, each checksum equal to the one its values give
@@ -867,8 +867,8 @@ def soa_segments(seed, b, nl, e, h, w, dev):
 # (seed, B, L, E, h, w, t, gran, k per layer): the bench's 128x160 (nxb 2),
 # t = 1 at nxb 1 and 2, nxb 3 and 5, h not a multiple of the band, odd and
 # oversubscribed budgets, and 480x640, whose whole frame (307 KB of uint8)
-# exceeds a block's shared memory, so the env and segment kernels drain it
-# in 48-row chunks (the frame kernel tiles it by 128 lanes)
+# exceeds a block's shared memory, so the frame, env and segment kernels
+# drain it in 48-row chunks
 SOA_CASES = [
     (31, 32, 3, 40, 128, 160, 2, 8, 40),
     (32, 32, 3, 40, 64, 48, 1, 16, 40),
@@ -881,7 +881,8 @@ SOA_CASES = [
 # (kind, seed, B, L, E, h, w, gran, k per env) of the env and segment
 # kernels at t = 2: every live slot of an env in one layer (the others
 # zeros), a budget that counts[0] reaches in every drawing env, and long
-# segments whose slots touch three or more lane blocks (w = 300 and 640)
+# segments whose slots touch three or more lane blocks (w = 300 and 640);
+# the frame kernel takes the same segments with k per (env, layer) frame
 SOA_EDGE_CASES = [
     ("one_layer", 51, 16, 3, 40, 128, 160, 16, 120),
     ("budget", 52, 16, 3, 40, 128, 160, 8, 10),
@@ -910,7 +911,8 @@ def check_soa_kernels(rk, dev):
     `compact_soa`, the env kernel on `compact_env_soa` lane-split and (t >=
     2, no w) unsplit, the segment kernel on `compact_env_seg` split (or one
     block) and (t >= 2) unsplit; the env and segment kernels also on
-    SOA_EDGE_CASES' bundles, split and unsplit. Returns {kernel name: max
+    SOA_EDGE_CASES' bundles, split and unsplit, and the frame kernel on
+    their segments' `compact_soa` bundle. Returns {kernel name: max
     |error|}."""
     err = {"frame_soa": 0.0, "env_soa": 0.0, "env_seg": 0.0}
     for seed, b, nl, e, h, w, t, gran, kl in SOA_CASES:
@@ -942,6 +944,11 @@ def check_soa_kernels(rk, dev):
                 (nl, res, t, gran, split and nxb > 1)))
     for kind, seed, b, nl, e, h, w, gran, k in SOA_EDGE_CASES:
         p0, p1, draw = soa_edge_segments(kind, seed, b, nl, e, h, w, dev)
+        frame = rk.compact_soa(p0, p1, draw, k, gran, h, 2, w=w)
+        frame_edge_check(kind, frame, k, b, nl)
+        err["frame_soa"] = max(err["frame_soa"], soa_kernel_vs_plain(
+            rk.frame_soa_kernel, rk.rasterize_compact_soa_plain, frame,
+            ((h, w), 2, gran)))
         for split in (True, False):
             soa = rk.compact_env_soa(p0, p1, draw, k * rk._n_xblocks(w), gran,
                                      h, 2, w=w if split else None)
@@ -959,9 +966,9 @@ def check_soa_kernels(rk, dev):
     print(f"kernels: frame, env and segment kernels equal to their plain "
           f"versions on {len(SOA_CASES)} random bundles each (t = 1, 2, 3; "
           "gran 8 and 16; nxb 1, 2, 3, 5; 30x200 to 480x640; split and "
-          "unsplit; oversubscribed); the env and segment kernels also on "
-          f"{len(SOA_EDGE_CASES)} edge bundles (one layer, a full budget, "
-          "slots over 3-5 lane blocks)")
+          "unsplit; oversubscribed) and on "
+          f"{len(SOA_EDGE_CASES)} edge bundles each (one layer, a full "
+          "budget, slots over 3-5 lane blocks)")
     return err
 
 
@@ -985,6 +992,20 @@ def soa_edge_segments(kind, seed, b, nl, e, h, w, dev):
         p0[:, :, ::3][..., :e // 3, :] = torch.stack([f(x0), f(y)], -1)
         p1[:, :, ::3][..., :e // 3, :] = torch.stack([f(x1), f(y + dy)], -1)
     return p0, p1, draw
+
+
+def frame_edge_check(kind, frame, k, b, nl):
+    """That an edge case's frame bundle (`compact_soa`, budget k a frame)
+    is what the case is named for."""
+    live = frame[-1][0].view(b, nl)
+    if kind == "one_layer":
+        others = [l for l in range(nl) if l != 1]
+        check(int(live[:, others].abs().sum()) == 0
+              and int(live[1:, 1].min()) > 0, "live frames outside layer 1")
+    if kind == "budget":
+        check(int(live[1:].min()) == k == int(live.max())
+              and int(frame[-1][2].sum()) > 0,
+              f"the frame budget {k} is not reached: {live.tolist()}")
 
 
 def soa_edge_check(rk, kind, soa, seg, k_soa, k_seg, w, split):
@@ -1016,10 +1037,10 @@ def rasterizer_bench(card, rk, errs, inputs):
     counts from that run, every kernel mode rendering the same masks
     (equal checksums, nothing dropped); then, on each kernel mode's
     4096-env bundle, the kernel against its plain version, both timed, and
-    its bound; and the env kernel (`env`, `cur`) and the segment kernel
-    (`seg`) alone in back-to-back calls beside K9's fill and `fill_` of
-    their output's size (the store floor), in turns. Returns the `kernels`
-    entries of the frame, env and segment kernels."""
+    its bound; and the frame (`full`), env (`env`, `cur`) and segment
+    (`seg`) kernels alone in back-to-back calls beside K9's fill and
+    `fill_` of their output's size (the store floor), in turns. Returns
+    the `kernels` entries of the frame, env and segment kernels."""
     import torch
 
     from tinycarlo_torch.benchmarks import rasterize_bench as rb
@@ -1113,22 +1134,24 @@ def rasterizer_bench(card, rk, errs, inputs):
             # into per-layer masks, so there is no library yardstick
             "library_ms": None,
         }
-    # the env and segment kernels alone, back to back, beside the store
-    # floor of their output, timed in turns in this call
+    # the frame, env and segment kernels alone, back to back, beside the
+    # store floor of their output, timed in turns in this call
     floor = torch.empty((rb.N_ENVS, inputs.n_layers, rb.H, rb.W),
                         dtype=torch.uint8, device="cuda")
     b2b = back_to_back_ms({
-        "env": calls["env"], "cur": calls["cur"], "seg": calls["seg"],
+        "full": calls["full"], "env": calls["env"], "cur": calls["cur"],
+        "seg": calls["seg"],
         "fill": lambda: pk.fill_kernel(floor, 0),
         "fill_": lambda: floor.fill_(0),
     })
     del floor
-    for mode in ("env", "cur", "seg"):
+    for mode in ("full", "env", "cur", "seg"):
         print(f"{rb.KERNEL_OF[mode].NAME} kernel ({mode}) alone in "
               f"back-to-back calls on {card}: {b2b[mode]:.4f} ms; store "
               f"floor, an output of its size filled: K9's fill "
               f"{b2b['fill']:.4f} ms, fill_ {b2b['fill_']:.4f} ms (kernel / "
               f"K9 fill {b2b[mode] / b2b['fill']:.2f})")
+    entries["frame_soa"]["back_to_back_ms"] = b2b["full"]
     entries["env_soa"]["back_to_back_ms"] = b2b["env"]
     entries["env_soa"]["back_to_back_ms_cur"] = b2b["cur"]
     entries["env_seg"]["back_to_back_ms"] = b2b["seg"]

@@ -397,6 +397,70 @@ def test_frame_soa_kernel_matches_plain(t, h, w, gran, kl):
               rk.rasterize_compact_soa_plain)
 
 
+def _frame_case(p0, p1, draw, k, gran, h, w, t=2):
+    """The frame kernel on compact_soa's bundle of per-layer segments, k
+    slots a frame, bit-equal to its plain version; returns (bundle,
+    output)."""
+    soa = rk.compact_soa(p0, p1, draw, k, gran, h, t, w=w)
+    return soa, _launched(rk.frame_soa_kernel, soa, ((h, w), t, gran),
+                          rk.rasterize_compact_soa_plain)
+
+
+def test_frame_soa_kernel_one_live_layer():
+    """Env 0 draws nothing and every other env only in layer 1: the
+    frames of env 0 and of layers 0 and 2 have no live slot (register
+    fills of zeros)."""
+    _require_cuda()
+    p0, p1, draw = _soa_segments(71, 16, 3, 40, 128, 160)
+    draw[:, [0, 2]] = False
+    soa, out = _frame_case(p0, p1, draw, 40, 8, 128, 160)
+    live = soa[-1][0].view(16, 3)
+    assert int(live[:, [0, 2]].abs().sum()) == 0 and int(live[1:, 1].min()) > 0
+    assert out[:, 1].any() and not out[:, [0, 2]].any()
+
+
+@pytest.mark.parametrize("gran", [8, 16])
+def test_frame_soa_kernel_budget_reached(gran):
+    """A budget of 10 slots that counts[0] reaches in every frame of every
+    env that draws, slots dropped."""
+    _require_cuda()
+    p0, p1, draw = _soa_segments(72, 16, 3, 40, 128, 160)
+    soa, _ = _frame_case(p0, p1, draw, 10, gran, 128, 160)
+    live = soa[-1][0].view(16, 3)[1:]
+    assert int(live.min()) == int(live.max()) == 10
+    assert int(soa[-1][2].sum()) > 0
+
+
+@pytest.mark.parametrize("gran", [8, 16])
+def test_frame_soa_kernel_480x640(gran):
+    """480x640 frames: each frame a 640-lane strip drained in 48-row
+    chunks, at both band heights."""
+    _require_cuda()
+    p0, p1, draw = _soa_segments(73 + gran, 8, 5, 80, 480, 640)
+    _frame_case(p0, p1, draw, 80, gran, 480, 640)
+
+
+@pytest.mark.parametrize("w", [300, 640])
+def test_frame_soa_kernel_t1_wide_unsplit(w):
+    """t = 1 (the Bresenham stamp, the compaction's clip at w) on frames
+    wider than one lane block: the bundle is never lane-split."""
+    _require_cuda()
+    h = 100 if w == 300 else 480
+    p0, p1, draw = _soa_segments(74 + w, 8, 3, 60, h, w)
+    for gran in (8, 16):
+        _frame_case(p0, p1, draw, 60, gran, h, w, t=1)
+
+
+def test_frame_soa_kernel_odd_slot_count():
+    """41 edges a frame and a budget above it: k' = 41 slots padded to 42
+    with a slot that draws nothing, and frames whose live count is odd."""
+    _require_cuda()
+    p0, p1, draw = _soa_segments(75, 16, 3, 41, 128, 160)
+    soa, _ = _frame_case(p0, p1, draw, 64, 8, 128, 160)
+    assert soa[0].shape[-1] == 42
+    assert int((soa[-1][0] % 2).sum()) > 0
+
+
 @pytest.mark.parametrize("split", [True, False])
 @pytest.mark.parametrize("t,h,w,gran,kl", SOA_CASES)
 def test_env_soa_kernel_matches_plain(t, h, w, gran, kl, split):

@@ -1,17 +1,22 @@
-"""The env and segment kernels' box clipping loses no pixel.
+"""The env, segment and frame kernels' box clipping loses no pixel.
 
-The env and segment kernels (ops/csrc/env_soa.cu, env_seg.cu) test only
-the pixels of each live copy's box -- its segment's bounding box padded by
-the stroke's reach and a one-pixel margin, clipped to the copy's stamped
-bands of the bundle's own height (gran 8 or 16) and to its lane block's
-output lanes (`rasterize_kernels.copy_box` at `box_pad(t)`, the rule of
-stamp.cuh's `copy_box`) -- where the plain versions
-(`rasterize_compact_env_soa_plain`, `rasterize_env_seg_plain`) evaluate
-the copy's whole window. They agree only if every output pixel that a copy
-lights in the plain version lies inside that copy's box. A copy of the
-env bundle (`compact_env_soa`) is a slot; one of the segment bundle
-(`compact_env_seg`) is a slot's segment in one lane block its touch bits
-name, moved into that block's lanes (`rasterize_kernels._seg_copies`).
+The env, segment and frame kernels (ops/csrc/env_soa.cu, env_seg.cu,
+frame_soa.cu) test only the pixels of each live copy's box -- its
+segment's bounding box padded by the stroke's reach and a one-pixel
+margin, clipped to the copy's stamped bands of the bundle's own height
+(gran 8 or 16) and to its lane block's output lanes
+(`rasterize_kernels.copy_box` at `box_pad(t)`, the rule of stamp.cuh's
+`copy_box`) -- where the plain versions
+(`rasterize_compact_env_soa_plain`, `rasterize_env_seg_plain`,
+`rasterize_compact_soa_plain`) evaluate the copy's whole window. They
+agree only if every output pixel that a copy lights in the plain version
+lies inside that copy's box. A copy of the env bundle (`compact_env_soa`)
+is a slot; one of the segment bundle (`compact_env_seg`) is a slot's
+segment in one lane block its touch bits name, moved into that block's
+lanes (`rasterize_kernels._seg_copies`); one of the frame bundle
+(`compact_soa`) is a slot of one (env, layer) frame, which the kernel
+takes as a one-layer env: frame 0 of its band word, never lane-split,
+at t = 1 too (its compaction clips with w but keeps frame lanes).
 
 This checks it on the CPU, with the bundle's own gran and split: random
 bundles at gran 8 and 16, split and unsplit, t = 1, 2, 3 and three frame
@@ -20,8 +25,9 @@ is not a multiple of 4), one 480x640 unsplit bundle, vertical, horizontal
 and single-pixel segments, near-plane clipped segments thousands of
 pixels long (some past the compaction's 1e6 px clamp), segment slots
 touching one, two and all three lane blocks of a 300-wide frame, and
-8-env bundles of the rasterizer benchmark's `env`, `cur` and `seg` modes;
-and that the boxes hold far fewer pixels than the windows. The segments
+8-env bundles of the rasterizer benchmark's `env`, `cur`, `seg` and
+`full` modes, and unsplit t = 1 frame bundles at w = 300 and 640; and
+that the boxes hold far fewer pixels than the windows. The segments
 come from tests/test_torch_masks_box.py's numpy-seeded generators.
 """
 import pytest
@@ -32,11 +38,20 @@ from tinycarlo_torch.ops import rasterize_kernels as rk
 
 
 def _bundle(kind, segs, h, w, t, gran, split, k):
-    """The env (`kind` "env") or segment bundle of the packed segments
-    `segs` at band height `gran`, lane-split iff `split`, k slots per env
-    (per lane block for the env bundle)."""
+    """The env (`kind` "env"), segment ("seg") or frame ("frame") bundle
+    of the packed segments `segs` at band height `gran`, lane-split iff
+    `split`, k slots per env (per lane block for the env bundle, per
+    (env, layer) frame for the frame bundle, which is never split: each
+    layer's frame gets the edges of its layer)."""
     u0, v0, u1, v1, draw, lay = segs
     f = lambda x: torch.tensor(x, dtype=torch.float32)[:, None]  # noqa: E731
+    if kind == "frame":
+        assert not split
+        p0 = torch.stack([f(u0), f(v0)], -1).expand(-1, L, -1, -1)
+        p1 = torch.stack([f(u1), f(v1)], -1).expand(-1, L, -1, -1)
+        mine = torch.tensor(lay)[None, None, :] == torch.arange(L)[:, None]
+        return rk.compact_soa(p0, p1, torch.tensor(draw)[:, None] & mine, k,
+                              gran, h, t, w=w)
     packed = dict(edge_layer=torch.tensor(lay), n_layers=L,
                   w=w if split else None)
     draw = torch.tensor(draw)[:, None]
@@ -56,6 +71,11 @@ def _copies(kind, bundle, geometry):
     if kind == "env":
         ax, ay, abx, aby, inv, bw, counts = bundle
         return bw, counts[0], rk._soa_payload(ax, ay, abx, aby, inv)
+    if kind == "frame":  # (B, L, k) slots: B*L one-layer envs
+        *arrays, counts = bundle
+        ax, ay, abx, aby, inv, bw = (x.reshape(-1, x.shape[-1])
+                                     for x in arrays)
+        return bw, counts[0], rk._soa_payload(ax, ay, abx, aby, inv)
     return rk._seg_copies(bundle, geometry)
 
 
@@ -69,7 +89,8 @@ def _boxes_hold_every_lit_pixel(kind, bundle, res, t, gran, split):
     n_bands, hp, win, nxb, wb = geometry
     words, n, payload = _copies(kind, bundle, geometry)
     pad = rk.box_pad(t)
-    absolute = kind == "env"  # `_kernel_env`'s rows; the segments' relative
+    # `_kernel_env`'s and `_kernel`'s rows; the segments' relative
+    absolute = kind in ("env", "frame")
     current = []
 
     def bands():
@@ -134,35 +155,49 @@ SHAPES = [(128, 160), (48, 96), (64, 150)]
 @pytest.mark.parametrize("h,w", SHAPES)
 @pytest.mark.parametrize("t", [1, 2, 3])
 @pytest.mark.parametrize("gran", [8, 16])
-@pytest.mark.parametrize("kind", ["env", "seg"])
+@pytest.mark.parametrize("kind", ["env", "seg", "frame"])
 def test_box_holds_every_lit_pixel_random(kind, gran, t, h, w):
     """Random bundles, lane-split and (t >= 2: the t = 1 clip needs w,
-    which splits the lanes) unsplit; the boxes hold under a third of the
+    which splits the env and segment bundles' lanes) unsplit, the frame
+    bundle unsplit at every t; the boxes hold under a third of the
     windows' pixels (the gran-8 windows are 16 rows)."""
     segs = _segments(100 * t + h + gran, 12, 100, h, w)
-    for split in (True, False) if t > 1 else (True,):
+    splits = (True, False) if t > 1 else (True,)
+    for split in (False,) if kind == "frame" else splits:
         _check(kind, segs, (h, w), t, gran, split, 100, 1 / 3)
 
 
 @pytest.mark.parametrize("t", [1, 2, 3])
-@pytest.mark.parametrize("kind", ["env", "seg"])
+@pytest.mark.parametrize("kind", ["env", "seg", "frame"])
 def test_box_holds_every_lit_pixel_special(kind, t):
     """Vertical, horizontal and single-pixel segments, and near-plane
     clipped segments ~1e4 px long and beyond the 1e6 px clamp (at t = 1
     the compaction clips every segment to the frame, as cv2 does), at
-    both band heights."""
+    both band heights; the frame bundle unsplit. The long segments' boxes
+    span their frames, so the boxes hold 38-65% of the windows' pixels
+    here: fewer is all that is asked."""
     h, w = 128, 160
     for gran in (8, 16):
         _check(kind, _special(7 + t + gran, 8, 90, h, w), (h, w), t, gran,
-               True, 90, 1.0)
+               kind != "frame", 90, 1.0)
 
 
-@pytest.mark.parametrize("kind", ["env", "seg"])
+@pytest.mark.parametrize("kind", ["env", "seg", "frame"])
 def test_box_holds_every_lit_pixel_480x640_unsplit(kind):
     """A 480x640 unsplit gran-8 bundle: a frame is one 640-lane strip, the
     kernels drain it in 48-row chunks."""
     h, w = 480, 640
     _check(kind, _segments(11, 4, 80, h, w), (h, w), 2, 8, False, 80, 0.1)
+
+
+@pytest.mark.parametrize("gran", [8, 16])
+@pytest.mark.parametrize("h,w", [(100, 300), (480, 640)])
+def test_frame_box_holds_every_lit_pixel_t1_wide_unsplit(h, w, gran):
+    """The frame bundle at t = 1 on frames wider than one lane block:
+    unsplit, so the Bresenham stamp runs with absolute rows over a 300-
+    and a 640-lane strip, its box padded by the margin alone."""
+    _check("frame", _segments(31 + w + gran, 8, 100, h, w), (h, w), 1, gran,
+           False, 100, 1 / 3)
 
 
 def test_seg_slots_touching_one_two_and_all_blocks():
@@ -184,19 +219,21 @@ def test_seg_slots_touching_one_two_and_all_blocks():
         assert set(blocks.tolist()) == {1, 2, 3}
 
 
-@pytest.mark.parametrize("mode", ["env", "cur", "seg"])
+@pytest.mark.parametrize("mode", ["env", "cur", "seg", "full"])
 def test_box_holds_every_lit_pixel_bench(mode):
     """8-env bundles of the rasterizer benchmark's modes (bench.py's
-    config, t = 2): `env` unsplit at gran 8, `cur` lane-split and `seg` at
-    gran 16; the boxes hold under a fifth of the windows' pixels."""
+    config, t = 2): `env` and `full` unsplit at gran 8, `cur` lane-split
+    and `seg` at gran 16; the boxes hold under a fifth of the windows'
+    pixels."""
     from tinycarlo_torch.benchmarks import rasterize_bench as rb
 
     inputs = rb.Inputs("cpu", 8)
-    start = inputs.layer[0] if mode == "env" else inputs.packed[0]
+    per_layer = mode in ("env", "full")
+    start = inputs.layer[0] if per_layer else inputs.packed[0]
     bundle, _ = rb.bundle(mode, inputs, start, 0)
-    gran = rb.GRAN if mode == "env" else rb.GRAN_PACKED
-    kind = "seg" if mode == "seg" else "env"
+    gran = rb.GRAN if per_layer else rb.GRAN_PACKED
+    kind = {"seg": "seg", "full": "frame"}.get(mode, "env")
     lit, boxes, windows = _boxes_hold_every_lit_pixel(
-        kind, bundle, (rb.H, rb.W), rb.THICK, gran, mode != "env")
+        kind, bundle, (rb.H, rb.W), rb.THICK, gran, not per_layer)
     assert lit > 0
     assert boxes < 0.2 * windows

@@ -18,8 +18,9 @@ its counterpart at the same path. The port runs on an NVIDIA GPU:
   env_seg.cu) and whose output-floor probes theirs (probe_ovl.cu,
   probe_fill.cu, probe_skip.cu). Nine `.cu` sources share three headers:
   stamp.cuh (the stamp), store.cuh (the 16-byte store path) and
-  env_block.cuh (the one-block-per-env skeleton of masks.cu, rank.cu,
-  exact.cu, env_soa.cu and env_seg.cu).
+  env_block.cuh (the one-block-per-env skeleton of every stamping
+  kernel: masks.cu, rank.cu, exact.cu, env_soa.cu, frame_soa.cu and
+  env_seg.cu).
 
 Entry points take `device=` and default to "cuda"; they raise when no GPU
 is present instead of carrying on on the CPU. Tests pass `device="cpu"`,

@@ -1,6 +1,7 @@
 // env_block.cuh -- the one-block-per-env skeleton that the masks (masks.cu,
-// K1), rank (rank.cu, K3), exact (exact.cu, K4), env (env_soa.cu, K5) and
-// segment (env_seg.cu, K7) kernels share, so that they cannot drift apart.
+// K1), rank (rank.cu, K3), exact (exact.cu, K4), env (env_soa.cu, K5),
+// frame (frame_soa.cu, K6; its frames are one-layer envs) and segment
+// (env_seg.cu, K7) kernels share, so that they cannot drift apart.
 //
 // One block of kEnvThreads threads per env walks the env's output in
 // whole-width row chunks (`Chunks`: the whole frame where it fits
@@ -16,7 +17,7 @@
 // chunk buffer laid out at the destination's 16-byte phase, and the chunk
 // leaves through store.cuh's 16-byte streaming stores (`drain_span`),
 // which zero the buffer behind them; an item with no unit (an empty env or
-// layer) is a register fill of zeros (`fill_span`) and touches no shared
+// layer) is a register fill of zeros (`fill_span`) and uses no shared
 // memory. `env_frames` is the chunk loop, in one of two shapes:
 //   masks (B, L, h, w): items (layer, chunk), each layer's units stamped
 //     with the value `one` (255, or 1.0f);
@@ -50,7 +51,7 @@
 // Stores of one value are idempotent, so the warps of a layer need no
 // ordering among themselves. The exact kernel's units have at most 32
 // rows, one a lane, and `row_spans` walks the pixels of per-row spans
-// with the warp's lanes on consecutive pixels, so that its stamp touches
+// with the warp's lanes on consecutive pixels, so that its stamp visits
 // its rows' spans, not its whole box.
 #pragma once
 
@@ -343,18 +344,43 @@ struct IdxSlots {
   }
 };
 
+// The slots of the older SoA bundles (`compact_env_soa`, K5; and
+// `compact_soa`, K6, whose (B, L) frames are B*L one-layer envs): slot s
+// of an env is copy s, entry env*le + s of the SoA arrays (le = k),
+// counts (3, B) with no per-layer rows.
+struct DirectSlots {
+  const Geometry& g;
+  const int32_t* counts;
+  const int32_t* bw;
+
+  __device__ __forceinline__ bool live(int env) const {
+    return counts[env] > 0;
+  }
+  __device__ __forceinline__ int slots(int env) const {
+    return min(counts[env], g.le);
+  }
+  template <typename F>
+  __device__ __forceinline__ void copies(int env, int s, F f) const {
+    const int word = bw[(size_t)env * g.le + s];
+    const int l = word_layer(g, word);
+    if (l >= 0) f(l, s, word);
+  }
+  __device__ __forceinline__ bool layer_live(int, int) const { return true; }
+};
+
 // The fast stroke's copies at `Gran`-row bands (masks.cu, rank.cu at 16;
-// env_soa.cu, env_seg.cu at 8 or 16): each copy's box (stamp.cuh
-// `copy_box`, padded by `pad`: the stroke's reach + kBoxMargin) cut into
-// units of about kUnitPixels pixels, walked with lanes on neighbouring
-// columns, stepping (row, column) without a division; each pixel is
-// tested with `window_hit` on the plain version's apx / apy floats
-// (integer valued, exact). The pixel row is window-relative, a tail band
-// in its own Gran-row window (`_tier_loops`, `_tier_loops_seg`), or with
-// `Absolute` the stacked strip row minus ay (`_kernel_env`): the two give
-// the same bits. Copy c of an env is entry env*le + c of the SoA arrays;
-// `box_units` and `stamp_copy` take a copy's payload as given, for
-// bundles whose copies are not entries (env_seg.cu).
+// env_soa.cu, frame_soa.cu, env_seg.cu at 8 or 16): each copy's box
+// (stamp.cuh `copy_box`, padded by `pad`: the stroke's reach +
+// kBoxMargin) cut into units of about kUnitPixels pixels, walked with
+// lanes on neighbouring columns, stepping (row, column) without a
+// division; each pixel is tested with `window_hit` on the plain version's
+// apx / apy floats (integer valued, exact). The pixel row is
+// window-relative, a tail band in its own Gran-row window (`_tier_loops`,
+// `_tier_loops_seg`), or with `Absolute` the stacked strip row minus ay
+// (`_kernel_env`, `_kernel`): the two give the same bits. Copy c of an
+// env is entry env*le + c of the SoA arrays; `box_units` and `stamp_copy`
+// take a copy's payload as given, for bundles whose copies are not
+// entries (env_seg.cu).
 template <int Gran = kGran, bool Absolute = false>
 struct FastCopies {
   const Params& p;
@@ -429,6 +455,35 @@ struct FastCopies {
 // The boxes' padding of the fast stroke: its reach + kBoxMargin.
 inline float fast_pad(const Params& p) {
   return sqrtf(p.lat2 > p.cap2 ? p.lat2 : p.cap2) + kBoxMargin;
+}
+
+// The uint8 masks of a bundle whose slot s is copy s (`DirectSlots`), with
+// absolute pixel rows (`_kernel_env`, `_kernel`) at Gran-row bands:
+// env_soa.cu's `compact_env_soa` envs (K5) and frame_soa.cu's
+// `compact_soa` frames as one-layer envs (K6), one block each.
+template <int Gran>
+__global__ void __launch_bounds__(kEnvThreads)
+direct_soa_kernel(Params p, uint8_t* __restrict__ out, Chunks q, float pad) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  env_frames<false>(DirectSlots{p, p.counts, p.bw},
+                    FastCopies<Gran, true>{p, pad}, p, out, q,
+                    One<uint8_t>::value, smem);
+}
+
+// Launches `direct_soa_kernel<Gran>` over p.B blocks. Returns the CUDA
+// error.
+template <int Gran>
+int launch_direct_soa(const Params& p, uint8_t* out, cudaStream_t stream) {
+  if ((long long)p.B * p.L * p.h * p.w == 0) return (int)cudaGetLastError();
+  const Chunks q = plan_chunks(p, 1, p.le);
+  const size_t smem = env_smem(q, p);
+  cudaError_t err = cudaFuncSetAttribute(
+      direct_soa_kernel<Gran>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  direct_soa_kernel<Gran><<<p.B, kEnvThreads, smem, stream>>>(p, out, q,
+                                                              fast_pad(p));
+  return (int)cudaGetLastError();
 }
 
 }  // namespace tc

@@ -23,7 +23,8 @@
 // with no live slot are zeros.
 //
 // Design. The one-block-per-env skeleton of env_block.cuh, shared with
-// masks.cu (see there): one block of 128 threads per env buckets the
+// masks.cu (see there), in its `direct_soa_kernel`, which frame_soa.cu
+// launches too: one block of 128 threads per env buckets the
 // env's live slots by layer once (`DirectSlots`: slot s is copy s; the
 // bundle has no per-layer counts, so a layer with no copy is skipped by
 // its empty bucket), stamps only each copy's box (stamp.cuh `copy_box` at
@@ -45,57 +46,6 @@
 // store, and tests only the boxes' pixels.
 #include "env_block.cuh"
 
-namespace {
-
-using namespace tc;
-
-// compact_env_soa's slots: slot s of an env is copy s, entry env*le + s of
-// the SoA arrays (le = k), counts (3, B) with no per-layer rows.
-struct DirectSlots {
-  const Geometry& g;
-  const int32_t* counts;
-  const int32_t* bw;
-
-  __device__ __forceinline__ bool live(int env) const {
-    return counts[env] > 0;
-  }
-  __device__ __forceinline__ int slots(int env) const {
-    return min(counts[env], g.le);
-  }
-  template <typename F>
-  __device__ __forceinline__ void copies(int env, int s, F f) const {
-    const int word = bw[(size_t)env * g.le + s];
-    const int l = word_layer(g, word);
-    if (l >= 0) f(l, s, word);
-  }
-  __device__ __forceinline__ bool layer_live(int, int) const { return true; }
-};
-
-template <int Gran>
-__global__ void __launch_bounds__(kEnvThreads)
-env_soa_kernel(Params p, uint8_t* __restrict__ out, Chunks q, float pad) {
-  extern __shared__ __align__(16) uint8_t smem[];
-  env_frames<false>(DirectSlots{p, p.counts, p.bw},
-                    FastCopies<Gran, true>{p, pad}, p, out, q,
-                    One<uint8_t>::value, smem);
-}
-
-template <int Gran>
-int launch(const Params& p, uint8_t* out, cudaStream_t stream) {
-  if ((long long)p.B * p.L * p.h * p.w == 0) return (int)cudaGetLastError();
-  const Chunks q = plan_chunks(p, 1, p.le);
-  const size_t smem = env_smem(q, p);
-  cudaError_t err = cudaFuncSetAttribute(
-      env_soa_kernel<Gran>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  env_soa_kernel<Gran><<<p.B, kEnvThreads, smem, stream>>>(p, out, q,
-                                                           fast_pad(p));
-  return (int)cudaGetLastError();
-}
-
-}  // namespace
-
 extern "C" int tc_env_soa_launch(
     const int32_t* counts, const float* ax, const float* ay,
     const float* abx, const float* aby, const float* inv, const int32_t* bw,
@@ -116,7 +66,7 @@ extern "C" int tc_env_soa_launch(
   p.lat2 = lat2;
   p.cap2 = cap2;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (gran == 8) return launch<8>(p, out, s);
-  if (gran == 16) return launch<16>(p, out, s);
+  if (gran == 8) return tc::launch_direct_soa<8>(p, out, s);
+  if (gran == 16) return tc::launch_direct_soa<16>(p, out, s);
   return (int)cudaErrorInvalidValue;
 }

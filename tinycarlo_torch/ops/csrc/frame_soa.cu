@@ -14,18 +14,26 @@
 // short, dropped]), pixel (env, l, y, x) is lit iff some slot s <
 // counts[0, f] with nb > 0 stamps it: the two-band window at band b0c and,
 // for a tall slot, the tail bands through b0c + nb, with `_kernel`'s
-// absolute pixel rows (stamp.cuh `stamp_tile`). The stamp order does not
+// absolute pixel rows, apy = (y0 + rr) - ay. The stamp order does not
 // matter: the output is an OR. Frames with no live slot are zeros.
 //
-// Design. One thread block per 128-lane tile of a frame, B*L*ceil(w/128)
-// blocks (stamp.cuh `soa_tile`, shared with env_soa.cu and env_seg.cu):
-// the TPU kernel keeps a whole (hp, w) frame in VMEM, which at 480x640
-// exceeds a block's 227 KB of shared memory. The block zeroes a uint8
-// [hp][min(w, 128)] strip, lists the frame's live slots whose x-range
-// (widened by the stroke) meets its lanes, stamps each listed slot's
-// window and tail over its lanes with all threads, and writes rows [0, h)
-// out in 4-wide stores when the width allows. Slots past counts[0], and
-// slots with nb == 0, are never walked.
+// Design. The bundle is a `compact_env_soa` bundle over B*L one-layer
+// envs: its slots are (B*L, k), its counts' row 0 is per frame, its band
+// word carries no frame bits (frame 0) and its ay is frame-relative, so
+// `_kernel`'s pixel row is `FastCopies<Gran, true>`'s at frame 0. So it
+// launches env_soa.cu's kernel (env_block.cuh `direct_soa_kernel`) on
+// that geometry (L = 1, unsplit): one block of 128 threads per (env,
+// layer) frame, B*L blocks, buckets the frame's live slots once
+// (`DirectSlots`: slot s is copy s), stamps only each slot's box
+// (stamp.cuh `copy_box` at Gran-row bands, padded by the stroke's reach +
+// 1 px) into a whole-width row chunk in shared memory (the whole 128x160
+// frame, 48-row chunks at 480x640), and drains the chunk through
+// store.cuh's 16-byte streaming stores; a frame with no live slot is a
+// register fill of zeros. The TPU kernel's grid is one step per env; a
+// block per frame gives the card L times as many. Slots past counts[0]
+// are never read; a slot with nb == 0 (the even-count pad slot) or whose
+// band lies past the frame's (a bundle compacted at the other band
+// height) is dropped at its word.
 //
 // Bound on the H100 at the benchmark's shape (B=4096, L=5, 128x160, t=2,
 // gran 8, k=128 per frame). Bytes: the uint8 output, 419 MB, written once,
@@ -34,41 +42,9 @@
 // slot's bounding box padded by the stroke, well under that at 67
 // TFLOP/s. So bytes bound it (the benchmark's `full` mode and
 // chip_smoke.py compute both from the run's bundle). The design writes
-// each output byte once but evaluates every pixel of each listed slot's
-// window and tail rows over the tile's lanes, many times the bounding
-// boxes' pixels; shrinking the windows is later work.
-#include "stamp.cuh"
-
-namespace {
-
-using namespace tc;
-
-constexpr int kThreads = 256;
-
-template <int Gran>
-__global__ void __launch_bounds__(kThreads)
-frame_soa_kernel(Params p, uint8_t* __restrict__ out, int strip_bytes,
-                 float pad) {
-  extern __shared__ __align__(16) uint8_t smem[];
-  const Tile t = block_tile(p);
-  const size_t f = (size_t)t.env * p.L + t.l;  // the (env, layer) frame
-  const size_t o = f * p.le;                   // its k slots
-  soa_tile(
-      p, t, p.counts[f], out, smem, strip_bytes,
-      [&](int s) {
-        return word_live(p.bw[o + s]) &&
-               touches(p.ax[o + s], p.abx[o + s], pad, t);
-      },
-      [&](int s, uint8_t* strip) {
-        const size_t q = o + s;
-        const int word = p.bw[q];
-        const int b0 = word >> kNbShift;
-        stamp_tile<Gran>(p, p, t, p.ax[q], p.ay[q], p.abx[q], p.aby[q],
-                         p.inv[q], b0, word & kNbMask, b0, strip);
-      });
-}
-
-}  // namespace
+// each output byte once, 16 bytes a store, and tests only the boxes'
+// pixels.
+#include "env_block.cuh"
 
 extern "C" int tc_frame_soa_launch(
     const int32_t* counts, const float* ax, const float* ay,
@@ -76,8 +52,9 @@ extern "C" int tc_frame_soa_launch(
     uint8_t* out, int B, int L, int h, int w, int k, int gran, int bres,
     float lat2, float cap2, void* stream) {
   tc::Params p;
-  // k slots per frame: the SoA rows are k apart, the list holds k
-  tc::set_geometry(p, B, L, h, w, k, k, gran, /*split=*/false);
+  // the B*L frames as one-layer envs, unsplit: the SoA rows and the
+  // (B, L, h, w) output are (B*L, k) and (B*L, 1, h, w)
+  tc::set_geometry(p, B * L, 1, h, w, k, k, gran, /*split=*/false);
   p.counts = counts;
   p.idx = nullptr;
   p.ax = ax;
@@ -90,11 +67,7 @@ extern "C" int tc_frame_soa_launch(
   p.lat2 = lat2;
   p.cap2 = cap2;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (gran == 8) {
-    return tc::launch_tiles(p, frame_soa_kernel<8>, out, k, kThreads, s);
-  }
-  if (gran == 16) {
-    return tc::launch_tiles(p, frame_soa_kernel<16>, out, k, kThreads, s);
-  }
+  if (gran == 8) return tc::launch_direct_soa<8>(p, out, s);
+  if (gran == 16) return tc::launch_direct_soa<16>(p, out, s);
   return (int)cudaErrorInvalidValue;
 }
