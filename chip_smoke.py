@@ -116,7 +116,20 @@ any failed check:
    float32) on random 512-env bundles at BASELINE config 3's frame size
    and batch, each equal to its plain version and alone (CUDA events,
    median of 20) beside its bound and the store floor.
-13. results: the `kernels` JSON line (K1-K10), the card line and, last,
+13. gym shim: the Gymnasium entry point (gym_env.TinyCarloEnv, B = 1) on
+   tinycarlo_torch.benchmarks.gym_bench's configs (BASELINE config 1,
+   64x64 classes; examples/config_simple_layout.yaml, rgb 128x160): 200
+   steps of random actions through the replayed CUDA graph, eagerly on
+   the card and on the CPU, each with its steps/s and ms a step; the
+   masks (classes) or rank (rgb) kernel launched once a render on the
+   card and recorded once a replayed step in a trace of 20 steps (kernel
+   records and device time a step, idle share); 20 replayed steps equal
+   bit for bit to 20 eager steps; config 1 with `camera.stroke: exact`
+   through the graph (exact-kernel launches equal to the renders, 20
+   replays equal to eager steps); 30 steps on the card against the CPU
+   shim (positions within 1e-4, under 0.5% of pixels); the five-wrapper
+   stack and NoiseObservationWrapper for 100 steps.
+14. results: the `kernels` JSON line (K1-K10), the card line and, last,
    the `ok` JSON line.
 
 Every phase prints its seconds.
@@ -611,7 +624,11 @@ def main():
     kernels_480x640(card, rk)
     clock.done("480x640 kernels")
 
-    # ---- 13. results --------------------------------------------------------
+    # ---- 13. the Gymnasium shim ----------------------------------------------
+    gym_shim(card, rk)
+    clock.done("gym shim")
+
+    # ---- 14. results --------------------------------------------------------
     print(f"chip_smoke: {time.perf_counter() - start:.1f} s after the "
           f"device check")
     print(json.dumps({"kernels": kernels}))
@@ -2178,6 +2195,129 @@ def kernels_480x640(card, rk):
               f"{floor_ms:.4f} ms; bound {n_bytes / 1e6:.1f} MB -> "
               f"{t_bytes:.4f} ms, {n_ops / 1e9:.2f} GOP -> {t_ops:.4f} ms: "
               f"{by} bind")
+
+
+def gym_shim(card, rk):
+    """Phase 13: the Gymnasium shim (gym_env.TinyCarloEnv) at B = 1 on
+    tinycarlo_torch.benchmarks.gym_bench's two configs: steps/s through
+    the replayed graph, eagerly on the card and on the CPU (200 steps
+    each), the render kernel's launches equal to the renders on the card,
+    kernel records a replayed step and its device time (a trace of TRACED
+    steps); 20 replayed steps equal to 20 eager steps bit for bit, also
+    under the exact stroke; a 30-step rollout on the card against the CPU
+    shim; the wrapper stack and
+    NoiseObservationWrapper for 100 steps on the card."""
+    import numpy as np
+
+    from tinycarlo_torch import wrapper as pw
+    from tinycarlo_torch.benchmarks import gym_bench as gb
+
+    for name, config in gb.CONFIGS.items():
+        for mode in gb.MODES:
+            r = gb.measure(name, mode)
+            kernel = (rk.masks_kernel if r["format"] == "classes"
+                      else rk.rank_kernel)
+            want = {k.NAME: 0 for k in (rk.masks_kernel, rk.rank_kernel,
+                                        rk.exact_kernel)}
+            if mode != "cpu":
+                want[kernel.NAME] = r["renders"]
+            check(r["launches"] == want, f"gym {name} {mode}: launches "
+                  f"{r['launches']}, not one {kernel.NAME} launch a render "
+                  f"({r['renders']})")
+            print(f"gym {name} ({r['format']}) {mode}: {r['steps']} steps, "
+                  f"{r['steps_per_s']:.1f} steps/s, {r['ms_step']:.4f} ms a "
+                  f"step (first step {r['first_ms']:.1f} ms), {r['resets']} "
+                  f"resets, launches {r['launches']}, on {card}")
+        env = gb.make_env(config, "graph")
+        env.reset(seed=gb.SEED)
+        action = gb.actions(1)[0]
+        busy_ms, top, by_name, wall_ms = device_profile(
+            lambda: env.step(action), calls=TRACED)
+        records = sum(c for _, c in by_name.values())
+        kernel_ms = kernel_device_ms(by_name, f"{kernel.NAME}_kernel")
+        check(busy_ms is not None and kernel_ms is not None,
+              f"gym {name}: a trace of {TRACED} replayed steps does not "
+              f"hold one {kernel.NAME} kernel record a step")
+        print(f"gym {name} replayed step, traced ({TRACED} steps): wall "
+              f"{wall_ms:.4f} ms, device busy {busy_ms:.4f} ms, idle share "
+              f"{1 - busy_ms / wall_ms:.4f}, {records:g} kernel records a "
+              f"step, {kernel.NAME} kernel {kernel_ms:.4f} ms device")
+        for key, ms, count in top[:3]:
+            print(f"  {ms:.4f} ms/step x{count}: {key}")
+        env.close()
+        equal = gb.graph_matches_eager(config, steps=20)
+        check(equal == 20, f"gym {name}: {20 - equal} of 20 replayed steps "
+              "differ from eager steps")
+        print(f"gym {name}: 20 replayed steps equal to 20 eager steps bit "
+              "for bit")
+
+    # the exact stroke (the exact kernel) through the graph: launches equal
+    # to the renders, replays equal to eager steps
+    exact = dict(gb.CONFIG1, camera=dict(gb.CONFIG1["camera"],
+                                         stroke="exact"))
+    env = gb.make_env(exact, "graph")
+    for k in (rk.masks_kernel, rk.rank_kernel, rk.exact_kernel):
+        k.launches = 0
+    r = gb.run(env, steps=50)
+    launched = {k.NAME: k.launches for k in (rk.masks_kernel, rk.rank_kernel,
+                                             rk.exact_kernel)}
+    check(launched == {"masks": 0, "rank": 0, "exact": r["renders"]},
+          f"gym exact: launches {launched}, renders {r['renders']}")
+    env.close()
+    equal = gb.graph_matches_eager(exact, steps=20)
+    check(equal == 20, f"gym exact: {20 - equal} of 20 replayed steps "
+          "differ from eager steps")
+    print(f"gym config1 exact stroke graph: 50 steps, "
+          f"{r['steps_per_s']:.1f} steps/s, launches {launched}; 20 replayed "
+          "steps equal to 20 eager steps bit for bit")
+
+    # the card against the CPU shim: config 1, 30 steps, same actions
+    envs = [gb.make_env(gb.CONFIG1, mode) for mode in ("graph", "cpu")]
+    for env in envs:
+        env.reset(seed=gb.SEED)
+    err, frac = 0.0, 0.0
+    for action in gb.actions(30):
+        outs = [env.step(action) for env in envs]
+        (obs_g, _, te_g, tr_g, info_g), (obs_c, _, te_c, tr_c, info_c) = outs
+        check((te_g, tr_g) == (te_c, tr_c), "gym: the card's and the CPU's "
+              "terminations differ")
+        err = max(err, float(np.abs(info_g["position"]
+                                     - info_c["position"]).max()))
+        frac = max(frac, float((obs_g != obs_c).mean()))
+        if te_g or tr_g:
+            for env in envs:
+                env.reset()
+    check(err < 1e-4 and frac < 0.005, f"gym: card and CPU shims differ: "
+          f"positions by {err}, {frac:.4%} of pixels")
+    print(f"gym cpu check: config1, 30 steps, positions within {err:.2e}, "
+          f"observations differ on at most {frac:.4%} of pixels")
+
+    # the wrapper stack (the reference TD3 stack and laneline shaping) and
+    # blob noise on the card
+    env = gb.make_env(gb.CONFIG1, "graph")
+    np.random.seed(0)
+    wrapped = pw.NoiseObservationWrapper(env, blob_max_radius=20, n_blobs=5)
+    wrapped = pw.CTELinearRewardWrapper(wrapped, min_cte=0.03,
+                                        max_reward=1.0, min_reward=-1.0)
+    wrapped = pw.LanelineSparseRewardWrapper(wrapped, {"outer": -2.0})
+    wrapped = pw.CTETerminationWrapper(wrapped, max_cte=0.1,
+                                       number_of_steps=5)
+    wrapped = pw.LanelineCrossingTerminationWrapper(wrapped, ["outer"])
+    wrapped = pw.CrashTerminationWrapper(wrapped, number_of_steps=10)
+    wrapped.reset(seed=gb.SEED)
+    ends, total = 0, 0.0
+    for action in gb.actions(100, seed=4):
+        obs, reward, terminated, truncated, _ = wrapped.step(action)
+        check(obs.shape == env.observation_space.shape
+              and set(np.unique(obs)) <= {0, 255}, "gym: a noised "
+              "observation of another shape or values")
+        total += reward
+        if terminated or truncated:
+            ends += 1
+            wrapped.reset()
+    check(np.isfinite(total) and env.wrapped, "gym: wrapped rewards")
+    print(f"gym wrappers: the five-wrapper stack and blob noise, 100 steps "
+          f"on the card: {ends} episodes ended, reward sum {total:.4f}")
 
 
 if __name__ == "__main__":

@@ -126,20 +126,33 @@ def port_modules():
 
 
 def test_port_imports_without_jax():
-    """Every module of the port imports with jax, flax and tinycarlo_tpu
-    blocked."""
+    """Every module of the port imports with jax, flax, tinycarlo_tpu and
+    gymnasium blocked, and the Gymnasium shim resets, steps and wraps on
+    the CPU without gymnasium (its stand-in base classes)."""
     modules = port_modules()
     for name in ("models.tinycar_net", "train.evaluate", "ops.rasterize",
                  "ops.rasterize_kernels", "ops.cv2_stroke", "env",
-                 "convert"):
+                 "convert", "gym_env", "wrapper.reward",
+                 "wrapper.termination", "wrapper.observation"):
         assert f"tinycarlo_torch.{name}" in modules
+    config = bench_config((32, 48))
     code = (
         "import sys\n"
-        "for m in ('jax', 'flax', 'tinycarlo_tpu'):\n"
+        "for m in ('jax', 'flax', 'tinycarlo_tpu', 'gymnasium'):\n"
         "    sys.modules[m] = None\n"
         "import importlib\n"
         f"for name in {port_modules()!r}:\n"
         "    importlib.import_module(name)\n"
+        "from tinycarlo_torch.gym_env import TinyCarloEnv\n"
+        "from tinycarlo_torch.wrapper import CTETerminationWrapper\n"
+        f"env = TinyCarloEnv(config={config!r}, device='cpu')\n"
+        "obs, info = env.reset(seed=3)\n"
+        "assert env.np_random_seed == 3 and obs.shape == (5, 32, 48)\n"
+        "wrapped = CTETerminationWrapper(env, max_cte=0.1)\n"
+        "assert wrapped.unwrapped is env and env.wrapped\n"
+        "out = wrapped.step({'car_control': [0.5, 0.1], 'maneuver': 0})\n"
+        "assert out[0].shape == (5, 32, 48) and out[1] == 0.0\n"
+        "assert wrapped.observation_space.shape == (5, 32, 48)\n"
         "print('ok')\n"
     )
     out = subprocess.run(
@@ -169,6 +182,7 @@ def test_entry_points_default_to_cuda():
     carrying on on the CPU."""
     from tinycarlo_torch import env as fenv
     from tinycarlo_torch.benchmarks import rasterize_bench
+    from tinycarlo_torch.gym_env import TinyCarloEnv
     from tinycarlo_torch.utils.helper import resolve_device
 
     assert resolve_device("cpu") == torch.device("cpu")
@@ -179,6 +193,8 @@ def test_entry_points_default_to_cuda():
             fenv.make_env_params(bench_config())
         with pytest.raises(RuntimeError, match="CUDA"):
             rasterize_bench.main(["full"])
+        with pytest.raises(RuntimeError, match="CUDA"):
+            TinyCarloEnv(config=bench_config())
 
 
 def _config_sources():

@@ -681,3 +681,77 @@ def test_bench_graph_matches_eager():
     assert r["equal"]
     assert r["respawns"] >= 3 * 256
     assert r["offsets"][0] == r["offsets"][1] > 0
+
+
+def test_gym_graph_matches_eager():
+    """The Gymnasium shim on the card: 20 replayed steps of each
+    gym_bench config, and of config 1 under the exact stroke, return what
+    20 eager steps return, bit for bit."""
+    _require_cuda()
+    from tinycarlo_torch.benchmarks import gym_bench as gb
+
+    exact = dict(gb.CONFIG1, camera=dict(gb.CONFIG1["camera"],
+                                         stroke="exact"))
+    for config in (*gb.CONFIGS.values(), exact):
+        assert gb.graph_matches_eager(config, steps=20) == 20
+
+
+@pytest.mark.parametrize("name", ["config1", "simple_layout"])
+def test_gym_launches_equal_renders(name):
+    """One masks (classes) or rank (rgb) launch a render, replays included;
+    the capture launches nothing."""
+    _require_cuda()
+    from tinycarlo_torch.benchmarks import gym_bench as gb
+
+    r = gb.measure(name, "graph", steps=30)
+    kernel = "masks" if r["format"] == "classes" else "rank"
+    want = {"masks": 0, "rank": 0, "exact": 0}
+    want[kernel] = r["renders"]
+    assert r["launches"] == want
+
+
+def test_gym_update_params_reaches_the_graph():
+    """New camera parameters, written into the captured tensors, change
+    the replayed step's frame as they change the eager step's."""
+    _require_cuda()
+    from tinycarlo_torch.benchmarks import gym_bench as gb
+
+    envs = [gb.make_env(gb.CONFIG1, mode) for mode in ("graph", "eager")]
+    for env in envs:
+        env.reset(seed=1)
+    action = {"car_control": [0.3, 0.05], "maneuver": 0}
+    for _ in range(3):
+        before = [env.step(action)[0] for env in envs]
+    for env in envs:
+        env.camera.orientation[0] = 10.0
+        env.camera.fov = 110.0
+        env.camera.update_params()
+    after = [env.step(action)[0] for env in envs]
+    assert np.array_equal(before[0], before[1])
+    assert np.array_equal(after[0], after[1])
+    assert not np.array_equal(after[0], before[0])
+
+
+def test_gym_debug_step_on_the_card(monkeypatch, capsys):
+    """DEBUG=1's staged step on the card returns the fused step's frame
+    and info (its reward is shaped on the host in float64, the fused
+    step's on the card in float32), and replays continue from its state."""
+    _require_cuda()
+    from tinycarlo_torch.benchmarks import gym_bench as gb
+
+    envs = [gb.make_env(gb.CONFIG1, mode) for mode in ("graph", "eager")]
+    for env in envs:
+        env.reset(seed=2)
+    acts = gb.actions(4, seed=5)
+    for i, action in enumerate(acts):
+        if i == 2:
+            monkeypatch.setenv("DEBUG", "1")
+        staged = envs[0].step(action)
+        monkeypatch.delenv("DEBUG", raising=False)
+        fused = envs[1].step(action)
+        assert np.array_equal(staged[0], fused[0])
+        assert staged[1] == pytest.approx(fused[1], abs=1e-6)
+        assert staged[2:4] == fused[2:4]
+        assert staged[4]["cte"] == fused[4]["cte"]
+        assert len(staged[4]["local_path"]) == len(fused[4]["local_path"])
+    assert "car step" in capsys.readouterr().out

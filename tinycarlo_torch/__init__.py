@@ -21,11 +21,24 @@ its counterpart at the same path. The port runs on an NVIDIA GPU:
   env_block.cuh (the one-block-per-env skeleton of every stamping
   kernel: masks.cu, rank.cu, exact.cu, env_soa.cu, frame_soa.cu and
   env_seg.cu).
+- the Gymnasium entry point (gym_env.TinyCarloEnv, registered as
+  "tinycarlo-torch-v2" when gymnasium imports; the JAX package holds
+  "tinycarlo-v2"), whose step is one replayed CUDA graph on the card, and
+  the reference's wrapper classes (wrapper/).
 
 Entry points take `device=` and default to "cuda"; they raise when no GPU
 is present instead of carrying on on the CPU. Tests pass `device="cpu"`,
 where each kernel's plain PyTorch version stands in for the kernel.
 
-This package imports torch, numpy and yaml only: never jax, flax or
-tinycarlo_tpu.
+This package imports torch, numpy and yaml, and gymnasium where it is
+installed: never jax, flax or tinycarlo_tpu.
 """
+
+try:  # gymnasium is optional: without it the shim subclasses stand-ins
+    from gymnasium.envs.registration import register, registry
+except ImportError:
+    pass
+else:
+    if "tinycarlo-torch-v2" not in registry:
+        register(id="tinycarlo-torch-v2",
+                 entry_point="tinycarlo_torch.gym_env:TinyCarloEnv")

@@ -91,17 +91,36 @@ def intrinsic_matrix(
     )
 
 
+def matrix_builder(
+    resolution: Tuple[int, int], dtype=torch.float32, device="cuda"
+):
+    """A `(orientation_deg (3,), position (3,), fov) -> CameraMatrices`
+    builder for one resolution: the matrices are built on the host in
+    `dtype` and moved to `device` (default "cuda"; raises without a GPU).
+    The config's matrices come from it, and so do the per-episode camera
+    randomizations (reference update_params, camera.py:48-50).
+    tinycarlo_tpu/camera.py:100-113."""
+    device = resolve_device(device)
+    resolution = tuple(resolution)
+
+    def build(orientation, position, fov) -> CameraMatrices:
+        orientation = torch.tensor(orientation, dtype=dtype)
+        position = torch.tensor(position, dtype=dtype)
+        return CameraMatrices(
+            E=extrinsic_matrix(orientation, position).to(device),
+            K=intrinsic_matrix(float(fov), resolution, dtype).to(device),
+        )
+
+    return build
+
+
 def build_camera_matrices(
     cfg: CameraConfig, dtype=torch.float32, device="cuda"
 ) -> CameraMatrices:
     """The config's matrices, built on the host in `dtype` and moved to
     `device` (default "cuda"; raises without a GPU)."""
-    device = resolve_device(device)
-    orientation = torch.tensor(cfg.orientation, dtype=dtype)
-    position = torch.tensor(cfg.position, dtype=dtype)
-    return CameraMatrices(
-        E=extrinsic_matrix(orientation, position).to(device),
-        K=intrinsic_matrix(cfg.fov, tuple(cfg.resolution), dtype).to(device),
+    return matrix_builder(cfg.resolution, dtype, device)(
+        cfg.orientation, cfg.position, cfg.fov
     )
 
 

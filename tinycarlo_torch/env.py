@@ -201,6 +201,19 @@ def render_observation_batch(
     return ras.rgb_from_rank(rank, md.laneline_colors)
 
 
+def render_observation(
+    params: EnvParams, state: EnvState, fmt: Optional[str] = None
+) -> torch.Tensor:
+    """The observation of a one-env state, without the batch axis:
+    `render_observation_batch` of the (1, ...) state, squeezed.
+    tinycarlo_tpu/env.py:141-186, without its CPU-only retry at a small
+    slot budget (:166-183), whose frames equal the full budget's."""
+    if state.car.position.shape[0] != 1:
+        raise ValueError("render_observation takes a one-env state; use "
+                         "render_observation_batch for a batch")
+    return render_observation_batch(params, state, fmt=fmt)[0]
+
+
 def _info(params: EnvParams, state: EnvState) -> Dict[str, torch.Tensor]:
     """Reference info dict (env.py:83-85), batched."""
     info = car_mod.car_info(params.map_data, params.cfg.car, state.car)

@@ -95,10 +95,12 @@ def step(
     """Vectorized step + fused shaping + in-graph auto-reset.
 
     Returns (state', obs, reward, terminated, truncated, info), obs None
-    when render=False. With a stack carrying reward or termination fns the
-    default shaping is off (reference env.py:136-138) and the stack
-    supplies it. Finished envs respawn at `respawn_rows` (B,) when given,
-    else at rows drawn from the state's generator.
+    when render=False; the stack's observation fns transform the rendered
+    obs, drawing from the state's generator. With a stack carrying reward
+    or termination fns the default shaping is off (reference
+    env.py:136-138) and the stack supplies it. Finished envs respawn at
+    `respawn_rows` (B,) when given, else at rows drawn from the state's
+    generator.
     """
     wrapped = stack is not None and (
         len(stack.reward_fns) > 0 or len(stack.termination_fns) > 0
@@ -132,5 +134,9 @@ def step(
         env=env_state, counters=counters, episode_step=episode_step,
         generator=state.generator,
     )
-    obs = fenv.render_observation_batch(params, env_state) if render else None
+    obs = None
+    if render:
+        obs = fenv.render_observation_batch(params, env_state)
+        if stack.observation_fns:  # tinycarlo_tpu/vector.py:147-150
+            obs = stack.apply_observation(state.generator, obs)
     return state, obs, reward, terminated, truncated, info

@@ -8,15 +8,14 @@ Counterpart of tinycarlo_tpu/wrapper/functional.py:30-158, 215-263
 
 over (B, ...) info tensors, so a whole stack runs inside vector.step.
 Layer-name-keyed dicts become per-layer coefficient vectors aligned with
-`MapData.laneline_names`.
-
-Not ported yet: `add_blob_noise_classes` and the stack's observation
-transforms (ROADMAP M12).
+`MapData.laneline_names`. Observation transforms (`add_blob_noise_classes`,
+functional.py:159-204) take (generator, obs) and draw from a
+torch.Generator where the JAX package folds a PRNG key.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -140,9 +139,95 @@ def crash_termination(
     )
 
 
+# ---------------------------------------------------------------------------
+# Observation noise (domain randomization).
+# ---------------------------------------------------------------------------
+
+def blob_noise_draws(
+    generator: Optional[torch.Generator],
+    observation: torch.Tensor,  # (..., C, H, W)
+    blob_max_radius: int = 100,
+    n_blobs: int = 10,
+) -> Tuple[torch.Tensor, ...]:
+    """The draws of `add_blob_noise_classes` for an observation of shape
+    (..., C, H, W): xs, ys, radius, copy_mode (bool) and src_channel, each
+    (..., C, n_blobs), from `generator` on the observation's device, in
+    that order. Their distributions are the JAX package's
+    (functional.py:178-183); the stream is torch's."""
+    *lead, c, h, w = observation.shape
+    kw = dict(size=(*lead, c, n_blobs), generator=generator,
+              device=observation.device)
+    xs = torch.randint(0, w, dtype=torch.int32, **kw)
+    ys = torch.randint(0, h, dtype=torch.int32, **kw)
+    radius = torch.randint(1, max(2, blob_max_radius), dtype=torch.int32, **kw)
+    copy_mode = torch.rand(**kw) < 0.3
+    src_channel = torch.randint(0, c, **kw)
+    return xs, ys, radius, copy_mode, src_channel
+
+
+def apply_blob_noise(
+    observation: torch.Tensor,  # (..., C, H, W) uint8
+    xs: torch.Tensor,  # (..., C, n_blobs) disc centre columns
+    ys: torch.Tensor,  # (..., C, n_blobs) disc centre rows
+    radius: torch.Tensor,  # (..., C, n_blobs)
+    copy_mode: torch.Tensor,  # (..., C, n_blobs) bool
+    src_channel: torch.Tensor,  # (..., C, n_blobs) int
+) -> torch.Tensor:
+    """Per-channel disc noise on class masks, given the draws. As the JAX
+    package's (functional.py:185-204): every disc of a channel is tested
+    against the *input* frame; a copy-mode disc lights (255) the pixels
+    its source channel lights, then every other disc erases (0) its
+    pixels. Batched over (..., C), one pass per blob, so no
+    (..., C, n_blobs, H, W) disc tensor is held."""
+    *lead, c, h, w = observation.shape
+    n_blobs = xs.shape[-1]
+    obs = observation.reshape(-1, c, h, w)
+    xs, ys, radius, copy_mode, src_channel = (
+        t.reshape(obs.shape[0], c, n_blobs)
+        for t in (xs, ys, radius, copy_mode, src_channel)
+    )
+    dev = obs.device
+    yy = torch.arange(h, dtype=torch.int32, device=dev)[:, None]
+    xx = torch.arange(w, dtype=torch.int32, device=dev)[None, :]
+    lit = obs > 0
+    add = torch.zeros(obs.shape, dtype=torch.bool, device=dev)
+    erase = torch.zeros_like(add)
+    for j in range(n_blobs):
+        def at(t):  # blob j's draw per (env, channel), broadcast over H, W
+            return t[:, :, j, None, None]
+
+        disc = ((xx - at(xs)) ** 2 + (yy - at(ys)) ** 2
+                <= at(radius) * at(radius))
+        src = torch.gather(lit, 1, at(src_channel).expand(obs.shape))
+        copy = at(copy_mode)
+        add |= disc & copy & src
+        erase |= disc & ~copy
+    out = obs.masked_fill(add, 255).masked_fill(erase, 0)
+    return out.reshape(*lead, c, h, w)
+
+
+def add_blob_noise_classes(
+    generator: Optional[torch.Generator],
+    observation: torch.Tensor,  # (..., C, H, W) uint8
+    blob_max_radius: int = 100,
+    n_blobs: int = 10,
+) -> torch.Tensor:
+    """Random disc noise on class masks: per channel, `n_blobs` discs that
+    either OR in the disc's content of a random channel (p = 0.3) or erase
+    the disc. Mirrors reference NoiseObservationWrapper
+    .add_blob_noise_classes (wrapper/observation.py:15-27) as the JAX
+    package batches it (tinycarlo_tpu/wrapper/functional.py:159-204):
+    `blob_noise_draws`, then `apply_blob_noise`."""
+    return apply_blob_noise(observation, *blob_noise_draws(
+        generator, observation, blob_max_radius, n_blobs))
+
+
 RewardFn = Callable[[Dict[str, torch.Tensor]], torch.Tensor]
 TerminationFn = Callable[
     [Dict[str, torch.Tensor], torch.Tensor], Tuple[torch.Tensor, torch.Tensor]
+]
+ObservationFn = Callable[
+    [Optional[torch.Generator], torch.Tensor], torch.Tensor
 ]
 
 
@@ -154,10 +239,23 @@ class WrapperStack:
     shaping is off, mirroring `unwrapped.wrapped = True` (reference
     wrapper/reward.py:16, env.py:136-138). Counters are (B,) int32
     tensors, one per termination fn, carried in vector.VecState.
+    `observation_fns` are (generator, obs) -> obs transforms of the
+    rendered (B, ...) observations (e.g. add_blob_noise_classes), the
+    batched NoiseObservationWrapper; an observation-only stack keeps the
+    default shaping, as the JAX package's does.
     """
 
     reward_fns: Tuple[RewardFn, ...] = ()
     termination_fns: Tuple[TerminationFn, ...] = ()
+    observation_fns: Tuple[ObservationFn, ...] = ()
+
+    def apply_observation(
+        self, generator: Optional[torch.Generator], obs: torch.Tensor
+    ) -> torch.Tensor:
+        """The observation fns in turn, each drawing from `generator`."""
+        for fn in self.observation_fns:
+            obs = fn(generator, obs)
+        return obs
 
     def apply(
         self,
