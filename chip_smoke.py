@@ -118,17 +118,20 @@ any failed check:
    median of 20) beside its bound and the store floor.
 13. gym shim: the Gymnasium entry point (gym_env.TinyCarloEnv, B = 1) on
    tinycarlo_torch.benchmarks.gym_bench's configs (BASELINE config 1,
-   64x64 classes; examples/config_simple_layout.yaml, rgb 128x160): 200
-   steps of random actions through the replayed CUDA graph, eagerly on
-   the card and on the CPU, each with its steps/s and ms a step; the
-   masks (classes) or rank (rgb) kernel launched once a render on the
-   card and recorded once a replayed step in a trace of 20 steps (kernel
-   records and device time a step, idle share); 20 replayed steps equal
-   bit for bit to 20 eager steps; config 1 with `camera.stroke: exact`
-   through the graph (exact-kernel launches equal to the renders, 20
-   replays equal to eager steps); 30 steps on the card against the CPU
-   shim (positions within 1e-4, under 0.5% of pixels); the five-wrapper
-   stack and NoiseObservationWrapper for 100 steps.
+   64x64 classes; examples/config_simple_layout.yaml, rgb 128x160) and
+   config 1 under `camera.stroke: exact`: the masks, rank or exact kernel
+   held bit for bit against its plain version on the bundles of the
+   shim's own states after 6 steps, each step's observation equal to the
+   plain frame; 200 steps of random actions through the replayed CUDA
+   graph, eagerly on the card and on the CPU (the exact stroke: 50
+   through the graph), each with its steps/s and ms a step, the
+   wrappers' launch counts equal to the eager renders plus the capture
+   (a replay passes no wrapper); a trace of 20 replayed steps with one
+   render-kernel record a step (kernel records and device time a step,
+   idle share); 20 replayed steps equal bit for bit to 20 eager steps;
+   30 steps on the card against the CPU shim (positions within 1e-4,
+   under 0.5% of pixels); the five-wrapper stack and
+   NoiseObservationWrapper for 100 steps.
 14. results: the `kernels` JSON line (K1-K10), the card line and, last,
    the `ok` JSON line.
 
@@ -2197,79 +2200,125 @@ def kernels_480x640(card, rk):
               f"{by} bind")
 
 
-def gym_shim(card, rk):
-    """Phase 13: the Gymnasium shim (gym_env.TinyCarloEnv) at B = 1 on
-    tinycarlo_torch.benchmarks.gym_bench's two configs: steps/s through
-    the replayed graph, eagerly on the card and on the CPU (200 steps
-    each), the render kernel's launches equal to the renders on the card,
-    kernel records a replayed step and its device time (a trace of TRACED
-    steps); 20 replayed steps equal to 20 eager steps bit for bit, also
-    under the exact stroke; a 30-step rollout on the card against the CPU
-    shim; the wrapper stack and
-    NoiseObservationWrapper for 100 steps on the card."""
+def shim_kernel_vs_plain(rk, ras, fenv, env, actions, seed):
+    """The render kernel of a shim on the card against its plain version
+    on the bundle of the shim's own state after each of these steps (B =
+    1, the config's frame and stroke), bit for bit, and the step's
+    observation equal to the plain version's frame. Returns (kernel, max
+    |error|, steps)."""
     import numpy as np
 
+    params = env.params
+    md = params.map_data
+    kernel = fenv.render_kernel(params)
+    geometry = (md.n_layers, tuple(params.cfg.camera.resolution),
+                params.cfg.camera.line_thickness)
+    check(env.observation_space_format in (
+        ("classes", "rgb") if kernel is rk.rank_kernel else ("classes",)),
+        f"no plain frame for {env.observation_space_format} here")
+    err = 0.0
+    env.reset(seed=seed)
+    for action in actions:
+        obs, _, terminated, truncated, _ = env.step(action)
+        bundle = bench_bundle(fenv, rk, params, env.state)
+        check(bundle[0].shape[0] == 1, "a shim's bundle holds one env")
+        if kernel is rk.rank_kernel:
+            err = max(err, rank_vs_plain(rk, ras, bundle, *geometry))
+            rank = rk.rasterize_rank_env_plain(bundle, *geometry)
+            frame = ras.rgb_from_rank(rank, md.laneline_colors)
+        else:
+            plain = (rk.rasterize_masks_exact_env_plain
+                     if kernel is rk.exact_kernel
+                     else rk.rasterize_masks_env_plain)
+            err = max(err, kernel_vs_plain(kernel, plain, bundle, *geometry))
+            frame = plain(bundle, *geometry)
+        check(np.array_equal(obs, frame[0].cpu().numpy()), f"a shim step's "
+              f"observation differs from the plain {kernel.NAME} frame")
+        if terminated or truncated:
+            env.reset()
+    return kernel, err, len(actions)
+
+
+def replay_trace(card, name, env, kernel, gb):
+    """The kernel records, device-busy ms, idle share and render-kernel
+    device ms of a replayed step of `env` (a trace of TRACED replays of
+    one action), which must hold one record of the render kernel a
+    replay; the replays leave the wrappers' counts as they were."""
+    env.reset(seed=gb.SEED)
+    action = gb.actions(1)[0]
+    before = kernel.launches
+    busy_ms, top, by_name, wall_ms = device_profile(
+        lambda: env.step(action), calls=TRACED)
+    check(kernel.launches == before, f"gym {name}: replays counted "
+          "launches")
+    records = sum(c for _, c in by_name.values())
+    kernel_ms = kernel_device_ms(by_name, f"{kernel.NAME}_kernel")
+    check(busy_ms is not None and kernel_ms is not None,
+          f"gym {name}: a trace of {TRACED} replayed steps does not hold "
+          f"one {kernel.NAME} kernel record a step")
+    print(f"gym {name} replayed step, traced ({TRACED} steps) on {card}: "
+          f"wall {wall_ms:.4f} ms, device busy {busy_ms:.4f} ms, idle share "
+          f"{1 - busy_ms / wall_ms:.4f}, {records:g} kernel records a "
+          f"step, {kernel.NAME} kernel {kernel_ms:.4f} ms device")
+    for key, ms, count in top[:3]:
+        print(f"  {ms:.4f} ms/step x{count}: {key}")
+
+
+def gym_shim(card, rk):
+    """Phase 13: the Gymnasium shim (gym_env.TinyCarloEnv) at B = 1 on
+    tinycarlo_torch.benchmarks.gym_bench's two configs and config 1 under
+    the exact stroke: the render kernel against its plain version on the
+    shim's own bundles; steps/s through the replayed graph, eagerly on the
+    card and on the CPU (200 steps each), the wrappers' launch counts
+    equal to the eager renders and captures; one render-kernel record a
+    replayed step in a trace of TRACED replays, and its kernel records,
+    device time and idle share; 20 replayed steps equal to 20 eager steps
+    bit for bit; a 30-step rollout on the card against the CPU shim; the
+    wrapper stack and NoiseObservationWrapper for 100 steps on the card.
+    Prints the seconds of each part."""
+    import numpy as np
+
+    from tinycarlo_torch import env as fenv
     from tinycarlo_torch import wrapper as pw
     from tinycarlo_torch.benchmarks import gym_bench as gb
+    from tinycarlo_torch.ops import rasterize as ras
 
-    for name, config in gb.CONFIGS.items():
-        for mode in gb.MODES:
-            r = gb.measure(name, mode)
-            kernel = (rk.masks_kernel if r["format"] == "classes"
-                      else rk.rank_kernel)
-            want = {k.NAME: 0 for k in (rk.masks_kernel, rk.rank_kernel,
-                                        rk.exact_kernel)}
-            if mode != "cpu":
-                want[kernel.NAME] = r["renders"]
-            check(r["launches"] == want, f"gym {name} {mode}: launches "
-                  f"{r['launches']}, not one {kernel.NAME} launch a render "
-                  f"({r['renders']})")
+    clock = PhaseClock()
+    configs = dict(gb.CONFIGS, config1_exact=gb.CONFIG1_EXACT)
+    for name, config in configs.items():
+        env = gb.make_env(config, "graph")
+        kernel, err, n = shim_kernel_vs_plain(
+            rk, ras, fenv, env, gb.actions(6, seed=6), gb.SEED)
+        print(f"gym {name}: the {kernel.NAME} kernel equal to its plain "
+              f"version on the shim's B = 1 bundles of {n} steps (max "
+              f"|error| {err:g}), each step's observation equal to the "
+              "plain frame")
+        clock.done(f"  gym {name} plain check")
+        exact = name not in gb.CONFIGS
+        for mode in ("graph",) if exact else gb.MODES:
+            r = gb.measure(name, mode, steps=50 if exact else gb.STEPS,
+                           config=config)
+            check(r["launches"] == r["want_launches"], f"gym {name} {mode}: "
+                  f"launches {r['launches']}, not {r['want_launches']} "
+                  f"({r['renders']} renders, {r['replays']} replays, "
+                  f"{r['captures']} capture)")
+            check(mode != "graph" or r["replays"] == r["steps"],
+                  f"gym {name}: {r['replays']} replays of {r['steps']} steps")
             print(f"gym {name} ({r['format']}) {mode}: {r['steps']} steps, "
                   f"{r['steps_per_s']:.1f} steps/s, {r['ms_step']:.4f} ms a "
                   f"step (first step {r['first_ms']:.1f} ms), {r['resets']} "
-                  f"resets, launches {r['launches']}, on {card}")
-        env = gb.make_env(config, "graph")
-        env.reset(seed=gb.SEED)
-        action = gb.actions(1)[0]
-        busy_ms, top, by_name, wall_ms = device_profile(
-            lambda: env.step(action), calls=TRACED)
-        records = sum(c for _, c in by_name.values())
-        kernel_ms = kernel_device_ms(by_name, f"{kernel.NAME}_kernel")
-        check(busy_ms is not None and kernel_ms is not None,
-              f"gym {name}: a trace of {TRACED} replayed steps does not "
-              f"hold one {kernel.NAME} kernel record a step")
-        print(f"gym {name} replayed step, traced ({TRACED} steps): wall "
-              f"{wall_ms:.4f} ms, device busy {busy_ms:.4f} ms, idle share "
-              f"{1 - busy_ms / wall_ms:.4f}, {records:g} kernel records a "
-              f"step, {kernel.NAME} kernel {kernel_ms:.4f} ms device")
-        for key, ms, count in top[:3]:
-            print(f"  {ms:.4f} ms/step x{count}: {key}")
+                  f"resets, {r['renders']} renders, {r['replays']} replays, "
+                  f"wrapper launches {r['launches']}, on {card}")
+        clock.done(f"  gym {name} runs")
+        # a replay's launch passes no wrapper: the trace counts them
+        replay_trace(card, name, env, kernel, gb)
         env.close()
         equal = gb.graph_matches_eager(config, steps=20)
         check(equal == 20, f"gym {name}: {20 - equal} of 20 replayed steps "
               "differ from eager steps")
         print(f"gym {name}: 20 replayed steps equal to 20 eager steps bit "
               "for bit")
-
-    # the exact stroke (the exact kernel) through the graph: launches equal
-    # to the renders, replays equal to eager steps
-    exact = dict(gb.CONFIG1, camera=dict(gb.CONFIG1["camera"],
-                                         stroke="exact"))
-    env = gb.make_env(exact, "graph")
-    for k in (rk.masks_kernel, rk.rank_kernel, rk.exact_kernel):
-        k.launches = 0
-    r = gb.run(env, steps=50)
-    launched = {k.NAME: k.launches for k in (rk.masks_kernel, rk.rank_kernel,
-                                             rk.exact_kernel)}
-    check(launched == {"masks": 0, "rank": 0, "exact": r["renders"]},
-          f"gym exact: launches {launched}, renders {r['renders']}")
-    env.close()
-    equal = gb.graph_matches_eager(exact, steps=20)
-    check(equal == 20, f"gym exact: {20 - equal} of 20 replayed steps "
-          "differ from eager steps")
-    print(f"gym config1 exact stroke graph: 50 steps, "
-          f"{r['steps_per_s']:.1f} steps/s, launches {launched}; 20 replayed "
-          "steps equal to 20 eager steps bit for bit")
+        clock.done(f"  gym {name} traces and replays")
 
     # the card against the CPU shim: config 1, 30 steps, same actions
     envs = [gb.make_env(gb.CONFIG1, mode) for mode in ("graph", "cpu")]
@@ -2291,6 +2340,7 @@ def gym_shim(card, rk):
           f"positions by {err}, {frac:.4%} of pixels")
     print(f"gym cpu check: config1, 30 steps, positions within {err:.2e}, "
           f"observations differ on at most {frac:.4%} of pixels")
+    clock.done("  gym cpu check")
 
     # the wrapper stack (the reference TD3 stack and laneline shaping) and
     # blob noise on the card
@@ -2318,6 +2368,7 @@ def gym_shim(card, rk):
     check(np.isfinite(total) and env.wrapped, "gym: wrapped rewards")
     print(f"gym wrappers: the five-wrapper stack and blob noise, 100 steps "
           f"on the card: {ends} episodes ended, reward sum {total:.4f}")
+    clock.done("  gym wrappers")
 
 
 if __name__ == "__main__":

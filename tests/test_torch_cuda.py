@@ -698,16 +698,19 @@ def test_gym_graph_matches_eager():
 
 @pytest.mark.parametrize("name", ["config1", "simple_layout"])
 def test_gym_launches_equal_renders(name):
-    """One masks (classes) or rank (rgb) launch a render, replays included;
-    the capture launches nothing."""
+    """The masks (classes) or rank (rgb) kernel's wrapper counts one launch
+    a render that ran eagerly (the resets and the first step) and one for
+    the capture, which records the launch every replay runs; replays pass
+    no wrapper, and each step after the first is one."""
     _require_cuda()
     from tinycarlo_torch.benchmarks import gym_bench as gb
 
     r = gb.measure(name, "graph", steps=30)
     kernel = "masks" if r["format"] == "classes" else "rank"
     want = {"masks": 0, "rank": 0, "exact": 0}
-    want[kernel] = r["renders"]
-    assert r["launches"] == want
+    want[kernel] = r["renders"] - r["replays"] + 1
+    assert r["replays"] == 30 and r["captures"] == 1
+    assert r["launches"] == r["want_launches"] == want
 
 
 def test_gym_update_params_reaches_the_graph():
@@ -733,9 +736,8 @@ def test_gym_update_params_reaches_the_graph():
 
 
 def test_gym_debug_step_on_the_card(monkeypatch, capsys):
-    """DEBUG=1's staged step on the card returns the fused step's frame
-    and info (its reward is shaped on the host in float64, the fused
-    step's on the card in float32), and replays continue from its state."""
+    """DEBUG=1's staged step on the card returns the fused step's frame,
+    reward, flags and info, and replays continue from its state."""
     _require_cuda()
     from tinycarlo_torch.benchmarks import gym_bench as gb
 
@@ -750,7 +752,7 @@ def test_gym_debug_step_on_the_card(monkeypatch, capsys):
         monkeypatch.delenv("DEBUG", raising=False)
         fused = envs[1].step(action)
         assert np.array_equal(staged[0], fused[0])
-        assert staged[1] == pytest.approx(fused[1], abs=1e-6)
+        assert staged[1] == fused[1]
         assert staged[2:4] == fused[2:4]
         assert staged[4]["cte"] == fused[4]["cte"]
         assert len(staged[4]["local_path"]) == len(fused[4]["local_path"])

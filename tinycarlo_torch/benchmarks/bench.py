@@ -61,7 +61,6 @@ import torch
 
 from tinycarlo_torch import env as fenv
 from tinycarlo_torch import vector
-from tinycarlo_torch.ops import rasterize_kernels as rk
 from tinycarlo_torch.train.stanley import stanley_steering
 from tinycarlo_torch.utils.helper import (card_clocks, card_line,
                                           resolve_device)
@@ -144,15 +143,6 @@ def make_body(params: fenv.EnvParams, n_envs: int,
     return body
 
 
-def render_kernel(params: fenv.EnvParams):
-    """The kernel that renders the bench's observations (CONFIG's fast
-    stroke): the masks kernel for classes, the rank kernel for rank, rgb
-    and rgb_planar."""
-    if params.cfg.sim.observation_space_format == "classes":
-        return rk.masks_kernel
-    return rk.rank_kernel
-
-
 def carried(vstate, info, checksum):
     """The tensors one step reads and writes: the car state's fields, the
     wrapper counters, the episode steps, the info the steering reads and
@@ -184,7 +174,7 @@ def capture(params, body, vstate, info, checksum, warmup: int = WARMUP):
     static = carried(vstate, info, checksum)
     if len({t.data_ptr() for t in static}) != len(static):
         raise RuntimeError("the step's carried tensors share storage")
-    kernel = render_kernel(params)
+    kernel = fenv.render_kernel(params)
     before = kernel.launches
     graph = torch.cuda.CUDAGraph()
     graph.register_generator_state(vstate.generator)

@@ -17,9 +17,13 @@ of a whole step, transfers included. Each config runs in three modes:
 `eager` (on the card, `graphs=False`: the step's kernels launched one by
 one) and `cpu` (`device="cpu"`, the plain PyTorch path on this machine's
 CPU). Prints one JSON line per (config, mode):
-steps/s, ms a step, the first step's ms, renders, resets and the render
-kernel's launches (on the card they must equal the renders), then the
-card's name and power limit.
+steps/s, ms a step, the first step's ms, renders, resets, replays, the
+render kernels' launches as their wrappers count them and the launches
+expected: on the card one a render that ran eagerly (the resets and, in
+graph mode, the first step) and one for each graph's capture, which
+records the launch its replays run (a replay passes no wrapper: a
+profiler trace counts its launches); none on the CPU. Then the card's
+name and power limit.
 
 Runs on the card and raises without a GPU; `run(env)` drives any shim
 (the tests call it on the CPU).
@@ -35,6 +39,7 @@ from typing import Dict, List
 
 import numpy as np
 
+from tinycarlo_torch.env import render_kernel
 from tinycarlo_torch.gym_env import RENDER_KERNELS, TinyCarloEnv
 from tinycarlo_torch.utils.helper import card_line, resolve_device
 
@@ -53,6 +58,9 @@ CONFIG1 = {
     "map": {"json_path": os.path.join(REPO, "examples/maps/simple_layout.json"),
             "pixel_per_meter": 450},
 }
+# config 1 under the exact stroke (the exact kernel)
+CONFIG1_EXACT = dict(CONFIG1,
+                     camera=dict(CONFIG1["camera"], stroke="exact"))
 CONFIGS = {
     "config1": CONFIG1,
     "simple_layout": os.path.join(REPO, "examples/config_simple_layout.yaml"),
@@ -100,16 +108,25 @@ def make_env(config, mode: str) -> TinyCarloEnv:
     return env
 
 
-def measure(name: str, mode: str, steps: int = STEPS) -> Dict:
-    """`run` on a new shim of config `name` in `mode`, the render kernels'
-    launch counts set to 0 after its construction and read after the run."""
-    env = make_env(CONFIGS[name], mode)
+def measure(name: str, mode: str, steps: int = STEPS, config=None) -> Dict:
+    """`run` on a new shim of config `name` (or of `config`) in `mode`,
+    the render kernels' launch counts set to 0 after its construction and
+    read after the run, beside the launches expected (see the module's
+    docstring)."""
+    env = make_env(CONFIGS[name] if config is None else config, mode)
     for kernel in RENDER_KERNELS:
         kernel.launches = 0
     result = run(env, steps)
+    captures = len(env._graphs)
+    want = {k.NAME: 0 for k in RENDER_KERNELS}
+    if env.device.type == "cuda":
+        want[render_kernel(env.params).NAME] = (
+            result["renders"] - env.replays + captures)
     result.update(config=name, mode=mode, steps=steps,
-                  format=env.observation_space_format,
-                  launches={k.NAME: k.launches for k in RENDER_KERNELS})
+                  format=env.observation_space_format, replays=env.replays,
+                  captures=captures,
+                  launches={k.NAME: k.launches for k in RENDER_KERNELS},
+                  want_launches=want)
     env.close()
     return result
 

@@ -201,6 +201,19 @@ def render_observation_batch(
     return ras.rgb_from_rank(rank, md.laneline_colors)
 
 
+def render_kernel(params: EnvParams):
+    """The kernel `render_observation_batch` launches for the config's
+    format: the exact kernel under `camera.stroke: exact` at t >= 2, else
+    the masks kernel for classes and the rank kernel for rank, rgb and
+    rgb_planar."""
+    camera = params.cfg.camera
+    if ras._exact(camera.line_thickness, camera.stroke):
+        return rk.exact_kernel
+    if params.cfg.sim.observation_space_format == "classes":
+        return rk.masks_kernel
+    return rk.rank_kernel
+
+
 def render_observation(
     params: EnvParams, state: EnvState, fmt: Optional[str] = None
 ) -> torch.Tensor:
@@ -232,6 +245,15 @@ def default_reward(params: EnvParams, cte: torch.Tensor) -> torch.Tensor:
 def default_termination(params: EnvParams, cte: torch.Tensor) -> torch.Tensor:
     """Reference env.py:95-99 (signed comparison, also as-is)."""
     return cte > params.cfg.car.track_width * 10
+
+
+def shaping(params: EnvParams, cte: torch.Tensor, truncated: torch.Tensor,
+            wrapped: bool = False):
+    """(reward, terminated) of a step: the default shaping, or zeros when
+    `wrapped` (reference env.py:136-138)."""
+    if wrapped:
+        return torch.zeros_like(cte), torch.zeros_like(truncated)
+    return default_reward(params, cte), default_termination(params, cte)
 
 
 def reset(
@@ -277,11 +299,5 @@ def step(
     state = replace(state, car=car_state)
     obs = render_observation_batch(params, state) if render else None
     info = _info(params, state)
-    cte = info["cte"]
-    if wrapped:
-        reward = torch.zeros_like(cte)
-        terminated = torch.zeros_like(truncated)
-    else:
-        reward = default_reward(params, cte)
-        terminated = default_termination(params, cte)
+    reward, terminated = shaping(params, info["cte"], truncated, wrapped)
     return state, obs, reward, terminated, truncated, info

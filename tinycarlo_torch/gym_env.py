@@ -16,11 +16,12 @@ exact`), the info and the default or wrapped shaping, captured once per
 buffers. Per step the host writes the action into a pinned buffer, copies
 it in, replays, and copies obs, reward, flags and info out as ONE byte
 buffer into pinned memory (tinycarlo_tpu/gym_env.py:309-326 is the JAX
-shim's one dispatch and one transfer). A replay launches the kernels its
-capture recorded, and adds them to their launch counts; the capture
-itself launches nothing and counts nothing. Anything that changes the
-state outside a step (`reset`, `camera.update_params()`) writes into the
-captured tensors in place.
+shim's one dispatch and one transfer). The capture raises unless it
+recorded exactly one launch of the render kernel (none without a render);
+its wrapper counts that recording, and a replay, which runs the recorded
+launch without the wrapper, counts nothing (`replays` counts the
+replays). Anything that changes the state outside a step (`reset`,
+`camera.update_params()`) writes into the captured tensors in place.
 
 The eager path (`device="cpu"`, and `DEBUG=1` / `DEBUG=2`, whose staged
 step prints the reference's timing lines) runs the same step body; a
@@ -48,7 +49,7 @@ from tinycarlo_torch.ops import rasterize_kernels as rk
 from tinycarlo_torch.utils.gym_compat import Env, spaces
 from tinycarlo_torch.utils.helper import getenv, numpy_dtype, resolve_device
 
-# the render kernels a step can launch, whose launch counts a replay adds to
+# the render kernels a step can launch
 RENDER_KERNELS = (rk.masks_kernel, rk.rank_kernel, rk.exact_kernel)
 
 
@@ -232,7 +233,8 @@ class TinyCarloEnv(Env):
         # replay each (render, wrapped) mode's captured step on the card;
         # False steps eagerly, as off the card
         self.graphs = cuda
-        # (render, wrapped) -> (graph, packed output, layout, launches)
+        self.replays = 0  # graph replays, one a replayed step
+        # (render, wrapped) -> (graph, packed output, layout)
         self._graphs: Dict[Tuple[bool, bool], tuple] = {}
         self._host_out: Dict[int, torch.Tensor] = {}  # pinned, by size
 
@@ -297,13 +299,17 @@ class TinyCarloEnv(Env):
             self.params, self.state, self._step_action(), render=want_obs,
             wrapped=wrapped,
         )
+        self._set_state(state.car)
+        return self._outputs(obs, reward, terminated, truncated, info)
+
+    @staticmethod
+    def _outputs(obs, reward, terminated, truncated, info):
+        """A step's outputs packed (`obs=None` when not rendering)."""
         outputs = dict(info, reward=reward, terminated=terminated,
                        truncated=truncated)
-        if want_obs:
+        if obs is not None:
             outputs["obs"] = obs
-        packed = _pack(outputs)
-        self._set_state(state.car)
-        return packed
+        return _pack(outputs)
 
     def _to_host(self, packed: torch.Tensor, layout) -> Dict[str, np.ndarray]:
         """ONE device->host copy of a packed buffer, unpacked."""
@@ -321,22 +327,27 @@ class TinyCarloEnv(Env):
     def _capture(self, want_obs: bool, wrapped: bool):
         """The first step of a (render, wrapped) mode: an eager step on a
         side stream (launchers' one-time setup, lazy initialisation), then
-        the capture of the step body, which runs nothing. Returns the eager
-        step's packed outputs and layout."""
+        the capture of the step body, which runs nothing and must record
+        one launch of the render kernel (none without a render). Returns
+        the eager step's packed outputs and layout."""
         stream = torch.cuda.Stream(self.device)
         stream.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(stream):
             packed, layout = self._step_body(want_obs, wrapped)
         torch.cuda.current_stream(self.device).wait_stream(stream)
-        before = [k.launches for k in RENDER_KERNELS]
+        before = {k.NAME: k.launches for k in RENDER_KERNELS}
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
             static, _ = self._step_body(want_obs, wrapped)
-        recorded = []
-        for kernel, n in zip(RENDER_KERNELS, before):
-            recorded.append(kernel.launches - n)
-            kernel.launches = n  # the capture launched nothing
-        self._graphs[(want_obs, wrapped)] = (graph, static, layout, recorded)
+        recorded = {k.NAME: k.launches - before[k.NAME]
+                    for k in RENDER_KERNELS}
+        want = dict.fromkeys(recorded, 0)
+        if want_obs:
+            want[fenv.render_kernel(self.params).NAME] = 1
+        if recorded != want:
+            raise RuntimeError(f"the captured step recorded the launches "
+                               f"{recorded}, not {want}")
+        self._graphs[(want_obs, wrapped)] = (graph, static, layout)
         return packed, layout
 
     def _fused_step(self, want_obs: bool, wrapped: bool
@@ -348,10 +359,9 @@ class TinyCarloEnv(Env):
         entry = self._graphs.get((want_obs, wrapped))
         if entry is None:
             return self._to_host(*self._capture(want_obs, wrapped))
-        graph, static, layout, recorded = entry
+        graph, static, layout = entry
         graph.replay()
-        for kernel, n in zip(RENDER_KERNELS, recorded):
-            kernel.launches += n
+        self.replays += 1
         return self._to_host(static, layout)
 
     def _render_obs(self, fmt: Optional[str] = None) -> np.ndarray:
@@ -470,22 +480,19 @@ class TinyCarloEnv(Env):
             td_obs = time.perf_counter() - st_obs
 
         st_info = time.perf_counter()
-        info = self._to_host(*_pack(fenv._info(params, self.state)))
+        info = fenv._info(params, self.state)
+        reward, terminated = fenv.shaping(params, info["cte"], truncated,
+                                          self.wrapped)
+        info = self._to_host(*self._outputs(None, reward, terminated,
+                                            truncated, info))
         td_info = time.perf_counter() - st_info
-
-        cte = float(info["cte"])
-        tw = cfg.car.track_width
-        if self.wrapped:
-            reward, terminated = 0.0, False
-        else:  # reference env.py:87-99
-            reward = max((-1.0 / tw) * cte + 1.0, 0.0)
-            terminated = cte > tw * 10
         print(
             f"all: {(time.perf_counter() - st)*1000:.2f} ms | "
             f"obs render {td_obs*1000:.2f} ms | info {td_info*1000:.2f} ms | "
             f"car step {td_step*1000:.2f} ms"
         )
-        return observation, reward, terminated, bool(truncated.cpu()), info
+        return (observation, info.pop("reward"), info.pop("terminated"),
+                info.pop("truncated"), info)
 
     def _debug_layers(self) -> None:
         """DEBUG=2: per layer, its edges of the packed axis projected, then
