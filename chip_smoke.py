@@ -15,11 +15,12 @@ any failed check:
    The masks and rank kernels on random compaction bundles (t = 1, 2, 3;
    w = 48, 150, 160 and 640; h = 30, 100, 128 and 480; an env with nothing to draw;
    an oversubscribed budget) and on real bundles of the bench config's
-   states, masks in uint8 and float32, rank also against rank_from_masks
-   of the masks kernel. The exact kernel on random exact bundles (t = 2,
-   3, 5; 48x96, 128x160, 480x640; deep-clipped segments, the pinned
-   swapped-edge segment, horizontal and vertical ties, an empty env, an
-   oversubscribed budget) and on real bundles, uint8 and float32 (0/1).
+   states, masks in uint8, float32 and bfloat16, rank also against
+   rank_from_masks of the masks kernel. The exact kernel on random exact
+   bundles (t = 2, 3, 5; 48x96, 128x160, 480x640; deep-clipped segments,
+   the pinned swapped-edge segment, horizontal and vertical ties, an empty
+   env, an oversubscribed budget) and on real bundles, uint8, float32 and
+   bfloat16 (0/1).
    The frame, env and segment kernels (the older `compact_soa`,
    `compact_env_soa` and `compact_env_seg` layouts) on random bundles
    (t = 1, 2, 3; gran 8 and 16; 1, 2, 3 and 5 lane blocks; 30x200 to
@@ -90,7 +91,10 @@ any failed check:
    pure-Python cv2 oracle (`thick_stroke_mask_ref`), segment by segment.
 10. serving (rgb): the bundled pretrained combo (models.load_pretrained)
    through the port's `train.evaluate` on examples/config_simple_layout.yaml,
-   whose rgb frames come from the rank kernel:
+   whose rgb frames come from the rank kernel; evaluate's rollout replays
+   a captured CUDA graph of its step, so launches count the eager steps
+   and captures (the replays apart), and an eager run's rate is printed
+   beside the graph's:
    a. the example's protocol (examples/benchmark_tinycar_net.py:92-98):
       maneuvers 0, 1, 2, 5 episodes of 1000 steps, seed 10, one worker
       process per maneuver; each cte_avg must be finite and below 0.02 m
@@ -132,7 +136,31 @@ any failed check:
    30 steps on the card against the CPU shim (positions within 1e-4,
    under 0.5% of pixels); the five-wrapper stack and
    NoiseObservationWrapper for 100 steps.
-14. results: the `kernels` JSON line (K1-K10), the card line and, last,
+14. TD3 (BASELINE config 4, the trainer's fused chunk as replayed CUDA
+   graphs; train/td3_loop.py):
+   b. tinycarlo_torch.benchmarks.td3_bench at 1024 and 64 envs in
+      bfloat16 and at 1024 in float32 (200-step chunks, the protocol cut
+      to 1 warm, 2 timed and 2 pipelined chunks and a traced 20-step
+      chunk): each JSON line; the masks kernel launched once per eager
+      step and capture (the replays counted apart) and recorded once a
+      step in the trace; finite, nonzero losses; the buffer's fill; the
+      actor moved;
+   a. on the 1024-env chunk's own bundles and on random bundles at w = 48,
+      150 and 640, the masks kernel in uint8, float32 and bfloat16 and the
+      exact kernel in the same three, bit-equal to their plain versions;
+      the bfloat16 masks kernel alone and back to back beside K9's fill
+      and fill_ of its 209.7 MB output, and its bound;
+   c. with deterministic algorithms on (td3_replays' docstring): a
+      replayed collect-only step and two steady policy_delay units equal
+      bit for bit to the same steps run eagerly;
+   e. a checkpoint restored into a fresh loop gives the same next chunk
+      bit for bit;
+   f. evaluate through the rollout graph equal to the eager rollout, 8
+      envs x 20 steps;
+   d. 8 envs x 12 steps of the chunk on the card against the CPU port
+      with the same injected draws: positions within 1e-4 m, losses
+      within a relative 1e-3.
+15. results: the `kernels` JSON line (K1-K10), the card line and, last,
    the `ok` JSON line.
 
 Every phase prints its seconds.
@@ -147,6 +175,11 @@ import os
 import statistics
 import sys
 import time
+
+# bit-repeatable cuBLAS products across streams (phase 14 compares replayed
+# graphs with eager steps under deterministic algorithms); read at cuBLAS's
+# first call, so set before torch starts
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 # the card's line and the bounds' peaks and rule, shared with the port's
 # benchmarks (an ImportError here: run from the root of a checkout)
@@ -372,12 +405,12 @@ def kernel_pair(rk, params):
 
 
 def kernel_vs_plain(kernel, plain, bundle, n_layers, res, t):
-    """Max |kernel - plain| over uint8 and float32 outputs (0 expected); the
-    float32 output must read exactly 0/1."""
+    """Max |kernel - plain| over uint8, float32 and bfloat16 outputs (0
+    expected); a float output must read exactly 0/1."""
     import torch
 
     err = 0.0
-    for dt in (torch.uint8, torch.float32):
+    for dt in (torch.uint8, torch.float32, torch.bfloat16):
         got = kernel(bundle, n_layers, res, t, out_dtype=dt)
         want = plain(bundle, n_layers, res, t, out_dtype=dt)
         check(got.shape == want.shape and got.dtype == want.dtype,
@@ -385,9 +418,9 @@ def kernel_vs_plain(kernel, plain, bundle, n_layers, res, t):
         e = (got.float() - want.float()).abs().max().item()
         check(e == 0.0, f"{kernel.NAME} kernel differs from its plain "
               f"version by {e} at t={t}, {res}, {dt}")
-        if dt == torch.float32:
+        if dt != torch.uint8:
             check(bool(((got == 0) | (got == 1)).all()),
-                  f"{kernel.NAME} kernel's float32 output is not 0/1")
+                  f"{kernel.NAME} kernel's {dt} output is not 0/1")
         err = max(err, e)
     return err
 
@@ -631,7 +664,11 @@ def main():
     gym_shim(card, rk)
     clock.done("gym shim")
 
-    # ---- 14. results --------------------------------------------------------
+    # ---- 14. TD3 ---------------------------------------------------------------
+    td3_phase(card, rk)
+    clock.done("td3")
+
+    # ---- 15. results --------------------------------------------------------
     print(f"chip_smoke: {time.perf_counter() - start:.1f} s after the "
           f"device check")
     print(json.dumps({"kernels": kernels}))
@@ -821,8 +858,8 @@ def check_kernels(rk, ras, fenv, vector, params, dev):
         *geometry))
     rank_err = max(rank_err, rank_vs_plain(rk, ras, real_bundle, *geometry))
     print(f"kernels: masks kernel equal to its plain version on "
-          f"{len(cases)} random bundles and 384 real envs, uint8 and "
-          f"float32; rank kernel equal to its plain version and to "
+          f"{len(cases)} random bundles and 384 real envs, uint8, float32 "
+          f"and bfloat16; rank kernel equal to its plain version and to "
           f"rank_from_masks of the masks kernel on the same bundles")
     return masks_err, rank_err
 
@@ -862,7 +899,8 @@ def check_exact_kernels(rk, fenv, vector, params_exact, dev):
 
     print(f"kernels: exact kernel equal to its plain version on "
           f"{len(cases)} random exact bundles (t = 2, 3, 5; 48x96, "
-          f"128x160, 480x640) and 384 real envs, uint8 and float32 (0/1)")
+          f"128x160, 480x640) and 384 real envs, uint8, float32 and "
+          f"bfloat16 (0/1)")
     return err
 
 
@@ -1786,10 +1824,12 @@ def protocol_maneuver(stroke, maneuver, steps, episodes, sequential):
     kernels = (rk.masks_kernel, rk.rank_kernel, rk.exact_kernel)
     for k in kernels:
         k.launches = 0
+    stats = {}
     r = evaluate(act, params, maneuver, None, seed=SERVE_SEED, steps=steps,
-                 episodes=episodes, sequential=sequential)
+                 episodes=episodes, sequential=sequential, stats=stats)
     del r["positions"]
     r["launches"] = {k.NAME: k.launches for k in kernels}
+    r["graph"] = {"replays": 0, "captures": 0, **stats}
     return r
 
 
@@ -1798,24 +1838,29 @@ def serving_protocol(pool, params, act, kernel, steps, episodes, budget_s,
     """Maneuvers 0, 1, 2 through `evaluate` at seed 10, one per process of
     `pool` at the same time (each evaluate call seeds its own generator,
     so the metrics are those of three calls in a row): each cte_avg finite
-    and below CTE_LIMIT, `kernel` launched once per render and no other
-    render kernel. Steps are cut (and the cut printed) if one maneuver
-    would take over `budget_s` at the per-step time this process
-    measures."""
+    and below CTE_LIMIT, `kernel` launched once per eager render and
+    capture (evaluate's rollout replays a captured graph for the rest) and
+    no other render kernel. Steps are cut (and the cut printed) if one
+    maneuver would take over `budget_s` at the per-step time of an eager
+    probe in this process, which is printed beside the graph's rates."""
     import numpy as np
 
     from tinycarlo_torch.train.evaluate import evaluate
 
     # timed after a warm-up: the first forward initialises cuDNN
     evaluate(act, params, 0, None, seed=SERVE_SEED, steps=5, episodes=episodes,
-             sequential=sequential)
+             sequential=sequential, graph=False)
     probe = 20
     start = time.perf_counter()
     evaluate(act, params, 0, None, seed=SERVE_SEED, steps=probe,
-             episodes=episodes, sequential=sequential)
+             episodes=episodes, sequential=sequential, graph=False)
     per_step = (time.perf_counter() - start) / probe
     if sequential:
         per_step /= episodes  # a sequential call steps episodes * steps times
+    print(f"{kernel.NAME} serving protocol, eager probe: "
+          f"{per_step * 1e3:.2f} ms per step, {episodes if not sequential else 1}"
+          f" env-steps each ({(1 if sequential else episodes) / per_step:.2f}"
+          f" env-steps/s)")
     runs = episodes if sequential else 1
     full = steps
     if steps * runs * per_step > budget_s:
@@ -1829,9 +1874,11 @@ def serving_protocol(pool, params, act, kernel, steps, episodes, budget_s,
         for maneuver in range(3)])
     for maneuver, r in enumerate(results):
         launches = r["launches"]
-        check(launches[kernel.NAME] == renders,
+        g = r["graph"]
+        check(launches[kernel.NAME] == renders - g["replays"] + g["captures"],
               f"{kernel.NAME} kernel launched {launches[kernel.NAME]} times "
-              f"for {renders} renders")
+              f"for {renders} renders, {g['replays']} of them replayed and "
+              f"{g['captures']} captures")
         others = [name for name, count in launches.items()
                   if name != kernel.NAME and count]
         check(not others, f"the rgb path ran the {others} kernel")
@@ -1864,26 +1911,31 @@ def serving_batch(card, params, act, kernel, repeats):
 
     for k in (rk.masks_kernel, rk.rank_kernel, rk.exact_kernel):
         k.launches = 0
+    stats = {"replays": 0, "captures": 0}
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         evaluate(act, params, 0, None, seed=0, steps=WARMUP,
-                 episodes=N_ENVS)
+                 episodes=N_ENVS, stats=stats)
         torch.cuda.reset_peak_memory_stats()
         rates = []
         for rep in range(repeats):
             r = evaluate(act, params, 0, None, seed=1 + rep, steps=CHUNK,
-                         episodes=N_ENVS)
+                         episodes=N_ENVS, stats=stats)
             check(np.isfinite(r["cte_avg"]) and np.isfinite(r["positions"])
                   .all(), "non-finite serving metrics")
             rates.append(r["steps_per_s"])
+        # one eager repeat, the rate before the rollout graph
+        eager = evaluate(act, params, 0, None, seed=1, steps=CHUNK,
+                         episodes=N_ENVS, graph=False)
     dropped = [str(w.message) for w in caught if "dropped" in str(w.message)]
     check(not dropped, f"segment overflow while serving: {dropped}")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     launches = kernel.launches
-    renders = WARMUP + repeats * CHUNK
-    check(launches == renders,
+    renders = WARMUP + (repeats + 1) * CHUNK
+    check(launches == renders - stats["replays"] + stats["captures"],
           f"{kernel.NAME} kernel launched {launches} times for {renders} "
-          "renders")
+          f"renders, {stats['replays']} of them replayed and "
+          f"{stats['captures']} captures")
     others = [k.NAME for k in (rk.masks_kernel, rk.rank_kernel,
                                rk.exact_kernel)
               if k is not kernel and k.launches]
@@ -1891,9 +1943,11 @@ def serving_batch(card, params, act, kernel, repeats):
     rates.sort()
     print(f"{kernel.NAME} serving: {N_ENVS} envs x {renders} steps, "
           f"{launches} {kernel.NAME} kernel launches")
-    print(f"{kernel.NAME} serving env-steps/s (policy included): median "
+    print(f"{kernel.NAME} serving env-steps/s (policy included), "
+          f"through the rollout graph: median "
           f"{statistics.median(rates):.1f} (min {rates[0]:.1f}, max "
-          f"{rates[-1]:.1f}, {repeats} repeats of {CHUNK} steps) on {card}; "
+          f"{rates[-1]:.1f}, {repeats} repeats of {CHUNK} steps); eager "
+          f"{eager['steps_per_s']:.1f} (one repeat) on {card}; "
           f"peak memory {peak_gb:.2f} GB")
     return statistics.median(rates), peak_gb
 
@@ -2369,6 +2423,344 @@ def gym_shim(card, rk):
     print(f"gym wrappers: the five-wrapper stack and blob noise, 100 steps "
           f"on the card: {ends} episodes ended, reward sum {total:.4f}")
     clock.done("  gym wrappers")
+
+
+# ---- 14. TD3 (BASELINE config 4) -------------------------------------------
+# td3_bench's runs in this phase: (envs, observation and encoder dtype,
+# traced), cut to fit the phase's time: 100-step chunks (not 200), 1 warm
+# (not 2), 2 timed (not 5) and 1 x 2 pipelined chunks (not 3 x 5), a
+# traced 20-step chunk in the first run only (the full protocol: `python
+# -m tinycarlo_torch.benchmarks.td3_bench`)
+TD3_RUNS = ((1024, "bfloat16", True), (64, "bfloat16", False),
+            (1024, "float32", False))
+TD3_PROTOCOL = {"chunk_steps": 100, "warm": 1, "repeats": 2,
+                "pipe_chunks": 2, "pipe_rounds": 1, "profile_steps": 20}
+# (seed, B, E, h, w, t, k per block) of the bfloat16 checks' random bundles
+TD3_RANDOM = ((21, 32, 120, 30, 48, 2, 120), (22, 16, 200, 100, 150, 3, 200),
+              (23, 8, 200, 480, 640, 2, 200))
+# card against CPU port: 8 envs x 12 steps from one state with injected
+# draws. The two devices' float32 projections differ in the last bits, so
+# a stroke-boundary pixel, and so a feature, may differ; positions within
+# 1e-4 m; losses within a relative 1e-3: the card's and the CPU's float32
+# sums differ in order, and Adam's first steps move a weight by about lr
+# wherever a gradient near zero changes sign
+TD3_CPU_ENVS, TD3_CPU_STEPS = 8, 12
+TD3_POS_ATOL, TD3_LOSS_RTOL = 1e-4, 1e-3
+
+
+def td3_config4(**kw):
+    """(TD3Config, LoopConfig, stack) of BASELINE config 4
+    (baseline_configs.py:166-262), LoopConfig fields overridden by `kw`."""
+    import torch
+
+    from tinycarlo_torch.train import td3
+    from tinycarlo_torch.train.evaluate import standard_stack
+    from tinycarlo_torch.train.td3_loop import LoopConfig
+
+    loop_kw = {"speed": 0.4, "replay_size": 100_000,
+               "max_episode_steps": 1000, "obs_dtype": torch.bfloat16}
+    loop_kw.update(kw)
+    return td3.TD3Config(), LoopConfig(**loop_kw), standard_stack()
+
+
+def td3_bench_runs(card, rk):
+    """(b): td3_bench at TD3_RUNS: each run's line, its checks (the masks
+    kernel launched once per eager step and capture, replays the rest; one
+    masks-kernel record a step in the traced chunk; finite, nonzero
+    losses; the buffer's fill; the actor moved). Returns the 1024-env
+    bfloat16 run's (state, params)."""
+    from tinycarlo_torch.benchmarks import td3_bench
+
+    kept = None
+    for n, dtype, traced in TD3_RUNS:
+        start = time.perf_counter()
+        r = td3_bench.run(n_envs=n, obs_dtype=dtype, profile=traced,
+                          **TD3_PROTOCOL)
+        state, params = r.pop("state"), r.pop("params")
+        check(r["launches"] == r["renders"] - r["replays"] + r["captures"],
+              f"td3 {n} {dtype}: {r['launches']} masks-kernel launches for "
+              f"{r['renders']} renders, {r['replays']} replayed and "
+              f"{r['captures']} captures")
+        check(not traced or r["render_kernel_records_per_step"] == 1,
+              f"td3 {n} {dtype}: {r['render_kernel_records_per_step']} "
+              "masks-kernel records a step in a traced chunk")
+        check(r["losses_finite"] and r["last_losses"]["critic1_loss"] != 0
+              and r["last_losses"]["critic2_loss"] != 0,
+              f"td3 {n} {dtype}: losses {r['last_losses']}")
+        check(r["buffer_filled"] == min(100_000, r["renders"] * n),
+              f"td3 {n} {dtype}: buffer_filled {r['buffer_filled']}")
+        check(r["actor_moved"], f"td3 {n} {dtype}: the actor did not move")
+        check(r["max_visible_overflow_at_reset"] == 0,
+              f"td3 {n} {dtype}: segment overflow at reset")
+        print(json.dumps(r))
+        print(f"td3 {n} envs {dtype}: {r['value']} env-steps/s synced "
+              f"(spread {r['spread']}), pipelined {r['pipelined_value']}; "
+              f"{r['busy_ms_per_step']} ms busy a step, idle "
+              f"{r['idle_share']}, masks kernel "
+              f"{r['render_kernel_ms_per_step']} ms a step; "
+              f"{time.perf_counter() - start:.1f} s on {card}")
+        if (n, dtype) == (1024, "bfloat16"):
+            kept = (state, params)
+        del state
+    return kept
+
+
+def td3_kernels(card, rk, state, params):
+    """(a): K1 in bfloat16 and float32 and K4 in bfloat16 bit-equal to
+    their plain versions on the chunk's own 1024-env bundles and on random
+    bundles at w = 48, 150 and 640; then the bfloat16 K1 alone and back to
+    back beside the store floor (K9's fill, fill_) of its output."""
+    import torch
+
+    from tinycarlo_torch import env as fenv
+    from tinycarlo_torch.ops import probe_kernels as pk
+
+    md = params.map_data
+    res = tuple(params.cfg.camera.resolution)
+    t = params.cfg.camera.line_thickness
+    bundle = bench_bundle(fenv, rk, params, state.vstate.env)
+    err = kernel_vs_plain(rk.masks_kernel, rk.rasterize_masks_env_plain,
+                          bundle, md.n_layers, res, t)
+    params_exact = with_stroke(params, "exact")
+    exact = bench_bundle(fenv, rk, params_exact, state.vstate.env)
+    err = max(err, kernel_vs_plain(
+        rk.exact_kernel, rk.rasterize_masks_exact_env_plain, exact,
+        md.n_layers, res, t))
+    for seed, b, e, h, w, tt, kb in TD3_RANDOM:
+        for exact_stroke, kernel, plain in (
+                (False, rk.masks_kernel, rk.rasterize_masks_env_plain),
+                (True, rk.exact_kernel, rk.rasterize_masks_exact_env_plain)):
+            rb = random_bundle(rk, seed, b, e, h, w, tt, kb, "cuda",
+                               exact=exact_stroke)
+            err = max(err, kernel_vs_plain(kernel, plain, rb, 5, (h, w), tt))
+    print(f"td3 kernels: masks kernel (uint8, float32, bfloat16) and exact "
+          f"kernel (the same) equal to their plain versions on the chunk's "
+          f"{bundle[1].shape[0]}-env bundles and random bundles at w = 48, "
+          f"150, 640; max |error| {err}")
+    n = bundle[1].shape[0]
+    bf16 = torch.bfloat16
+    out_bytes = n * md.n_layers * res[0] * res[1] * 2
+    one_ms = cuda_ms(lambda: rk.masks_kernel(bundle, md.n_layers, res, t,
+                                             out_dtype=bf16), repeats=20)
+    plain_ms = cuda_ms(lambda: rk.rasterize_masks_env_plain(
+        bundle, md.n_layers, res, t, out_dtype=bf16), repeats=3, warmup=1)
+    floor = torch.empty(out_bytes, dtype=torch.uint8, device="cuda")
+    b2b = back_to_back_ms({
+        "kernel": lambda: rk.masks_kernel(bundle, md.n_layers, res, t,
+                                          out_dtype=bf16),
+        "fill": lambda: pk.fill_kernel(floor, 0),
+        "fill_": lambda: floor.fill_(0),
+    })
+    # the exact kernel in bfloat16 on the same states (the exact stroke's
+    # encoder feed), beside the same floor
+    exact_one = cuda_ms(lambda: rk.exact_kernel(exact, md.n_layers, res, t,
+                                                out_dtype=bf16), repeats=20)
+    exact_b2b = back_to_back_ms({
+        "kernel": lambda: rk.exact_kernel(exact, md.n_layers, res, t,
+                                          out_dtype=bf16),
+        "fill": lambda: pk.fill_kernel(floor, 0),
+    })
+    exact_plain = cuda_ms(lambda: rk.rasterize_masks_exact_env_plain(
+        exact, md.n_layers, res, t, out_dtype=bf16), repeats=3, warmup=1)
+    e_bytes, e_ops = exact_bytes_and_ops(rk, exact, res, t, out_bytes)
+    e_bound, e_by, _, _ = bound(e_bytes, e_ops, PEAK_I32_PER_S)
+    print(f"exact kernel, bfloat16, {n} envs: {exact_one:.4f} ms alone, "
+          f"{exact_b2b['kernel']:.4f} ms back to back (K9's fill "
+          f"{exact_b2b['fill']:.4f} ms); plain {exact_plain:.4f} ms; bound "
+          f"{e_bound:.4f} ms ({e_by}) on {card}")
+    n_bytes, n_ops = bundle_bytes_and_ops(rk, bundle, res, t, out_bytes)
+    bound_ms, by, t_bytes, t_ops = bound(n_bytes, n_ops, PEAK_F32_PER_S)
+    print(f"masks kernel, bfloat16, {n} envs: {one_ms:.4f} ms alone, "
+          f"{b2b['kernel']:.4f} ms back to back; store floor of its "
+          f"{out_bytes / 1e6:.1f} MB output: K9's fill {b2b['fill']:.4f} "
+          f"ms, fill_ {b2b['fill_']:.4f} ms; plain {plain_ms:.4f} ms; "
+          f"bound {bound_ms:.4f} ms ({by}: {n_bytes / 1e6:.1f} MB -> "
+          f"{t_bytes:.4f} ms, {n_ops / 1e9:.2f} GOP -> {t_ops:.4f} ms) "
+          f"on {card}")
+
+
+def td3_loop_states(params, n, seed, cfg=None, **kw):
+    """A config-4 loop of `n` envs (bfloat16 frames and encoder unless
+    `kw` says otherwise; `cfg` replacing the TD3Config) and its chunk
+    arguments."""
+    import torch
+
+    from tinycarlo_torch.benchmarks import td3_bench
+    from tinycarlo_torch.models.tinycar_net import encoder_apply_fn
+    from tinycarlo_torch.train.td3_loop import init_loop
+
+    default, loop_cfg, stack = td3_config4(**kw)
+    cfg = cfg or default
+    enc = encoder_apply_fn(td3_bench.make_encoder(
+        params, loop_cfg.obs_dtype or torch.float32))
+    state = init_loop(params, cfg, loop_cfg, n, seed=seed, stack=stack)
+    return state, (params, cfg, loop_cfg, enc)
+
+
+def states_equal(a, b):
+    """Every tensor of two states equal bit for bit (NaN-free)."""
+    import torch
+
+    from tinycarlo_torch.utils import graphs
+
+    ta, tb = graphs.tensors(a), graphs.tensors(b)
+    return len(ta) == len(tb) and all(torch.equal(x, y)
+                                      for x, y in zip(ta, tb))
+
+
+def td3_replays(params):
+    """(c) and (e), with torch's deterministic algorithms on
+    (`torch.use_deterministic_algorithms`, cuDNN deterministic and not
+    benchmarked; CUBLAS_WORKSPACE_CONFIG set at the top of this script):
+    (c) 9 steps of a 64-env loop from a fresh state through the graphs --
+    3 collect-only steps (the first eager, then captured; 2 replays), then
+    4 update steps alternating critic-only and critic + actor (the first of
+    each kind eager, then captured; two steady policy_delay units
+    replayed) -- against the same 9 steps run eagerly from a second loop
+    of the same seed: every state tensor and output equal bit for bit. The
+    buffer (100 000 slots) has not started evicting. (e) A checkpoint of
+    the first loop after those steps, restored into a fresh loop of
+    another seed: the next 6-step chunk of both equal bit for bit."""
+    import tempfile
+
+    import torch
+
+    from tinycarlo_torch.train.td3_loop import chunk
+    from tinycarlo_torch.utils import checkpoint, graphs
+
+    graphs.deterministic(True)
+    try:
+        a, args = td3_loop_states(params, 64, seed=3)
+        b, _ = td3_loop_states(params, 64, seed=3)
+        stack = td3_config4()[2]
+        a, out_a = chunk(a, *args, 9, stack=stack)
+        b, out_b = chunk(b, *args, 9, stack=stack, graph=False)
+        rt = a.runtime
+        check(rt.replays == 6 and len(rt.graphs) == 3,
+              f"td3 graphs: {rt.replays} replays of {len(rt.graphs)} "
+              "graphs, not 6 of 3")
+        check(a.generator.get_offset() == b.generator.get_offset(),
+              "td3 graphs: the generators' offsets differ")
+        same = states_equal(a, b) and all(
+            torch.equal(out_a[k], out_b[k]) for k in out_a)
+        check(same, "td3: the replayed steps differ from the eager steps")
+        check(bool((out_a["critic1_loss"][3:] != 0).all()),
+              "td3 graphs: no update in the steady steps")
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "loop.pt")
+            checkpoint.save(path, a)
+            c, _ = td3_loop_states(params, 64, seed=7)
+            checkpoint.restore(path, c)
+        a, out_a = chunk(a, *args, 6, stack=stack)
+        c, out_c = chunk(c, *args, 6, stack=stack)
+        same = states_equal(a, c) and all(
+            torch.equal(out_a[k], out_c[k]) for k in out_a)
+        check(same, "td3: the chunk after a restored checkpoint differs")
+    finally:
+        graphs.deterministic(False)
+    print("td3 graphs: a replayed collect-only step (2 replays) and two "
+          "steady policy_delay units, 64 envs, equal bit for bit to eager "
+          "steps; a checkpoint restored into a fresh loop gives the same "
+          "next chunk bit for bit")
+
+
+def td3_card_vs_cpu(params_gpu):
+    """(d): TD3_CPU_STEPS steps of TD3_CPU_ENVS envs on the card (through
+    the graphs) and on the CPU port from one state (made on the CPU,
+    copied to the card) with the same injected draws; config 4's widths
+    at float32, batch 16 and 1000 replay slots so that updates run."""
+    import numpy as np
+    import torch
+
+    from tinycarlo_torch.benchmarks import td3_bench
+    from tinycarlo_torch.utils import graphs
+    from tinycarlo_torch.train.td3_loop import chunk
+
+    n, steps = TD3_CPU_ENVS, TD3_CPU_STEPS
+    params_cpu = td3_bench.make_params("cpu")
+    cfg = dataclasses.replace(td3_config4()[0], batch_size=16)
+    kw = {"cfg": cfg, "replay_size": 1000, "obs_dtype": torch.float32}
+    cpu, cpu_args = td3_loop_states(params_cpu, n, seed=5, **kw)
+    gpu, gpu_args = td3_loop_states(params_gpu, n, seed=5, **kw)
+    graphs.copy_into(gpu, cpu)
+    gpu.filled_host, gpu.steps_host = cpu.filled_host, cpu.steps_host
+    rng = np.random.default_rng(5)
+    filled = np.minimum(n * np.arange(1, steps + 1), 1000)
+    draws = {
+        "ou": torch.tensor(rng.standard_normal((steps, n, 1)),
+                           dtype=torch.float32),
+        "evict": torch.tensor(rng.integers(0, 1000, (steps, n))),
+        "sample": torch.tensor(np.stack([
+            rng.integers(0, f, (1, cfg.batch_size)) for f in filled])),
+        "maneuver": torch.tensor(rng.integers(0, 3, (steps, n))),
+        "respawn": torch.tensor(rng.integers(
+            0, params_cpu.map_data.spawns.count, (steps, n))),
+    }
+    stack = td3_config4()[2]
+    cpu, out_c = chunk(cpu, *cpu_args, steps, stack=stack, draws=draws)
+    gpu, out_g = chunk(gpu, *gpu_args, steps, stack=stack, draws=draws)
+    pos = (gpu.vstate.env.car.position.cpu()
+           - cpu.vstate.env.car.position).abs().max().item()
+    check(pos <= TD3_POS_ATOL, f"td3 card vs CPU: positions differ by {pos}")
+    worst = 0.0
+    for k in ("critic1_loss", "critic2_loss", "actor_loss"):
+        want, got = out_c[k], out_g[k].cpu()
+        check(bool(((want == 0) == (got == 0)).all()),
+              f"td3 card vs CPU: {k} skipped on one device only")
+        rel = ((got - want).abs() / want.abs().clamp_min(1e-12)).max().item()
+        worst = max(worst, rel)
+    check(worst <= TD3_LOSS_RTOL,
+          f"td3 card vs CPU: losses differ by a relative {worst}")
+    check(bool((out_c["critic1_loss"][1:] != 0).all()),
+          "td3 card vs CPU: no update ran")
+    print(f"td3 card vs CPU: {n} envs x {steps} steps, positions within "
+          f"{pos:.3g} m, losses within a relative {worst:.3g}")
+
+
+def td3_evaluate(params):
+    """(f): `evaluate` of the bundled combo through the rollout graph
+    against the eager rollout, 8 envs x 20 steps, deterministic algorithms
+    on: the metrics and positions equal bit for bit."""
+    import numpy as np
+
+    from tinycarlo_torch.train.evaluate import evaluate
+    from tinycarlo_torch.utils import graphs
+
+    params_s, act = serving_setup("fast")
+    stats_g, stats_e = {}, {}
+    graphs.deterministic(True)
+    try:
+        g = evaluate(act, params_s, 1, None, seed=4, steps=20, episodes=8,
+                     stats=stats_g)
+        e = evaluate(act, params_s, 1, None, seed=4, steps=20, episodes=8,
+                     graph=False, stats=stats_e)
+    finally:
+        graphs.deterministic(False)
+    check(stats_g == {"replays": 17, "captures": 1} and not stats_e,
+          f"evaluate: {stats_g} through the graph, {stats_e} eagerly")
+    check(np.array_equal(g["positions"], e["positions"])
+          and all(g[k] == e[k] for k in ("cte_avg", "heading_error_avg",
+                                         "total_reward", "terminations")),
+          "evaluate through the rollout graph differs from the eager "
+          "rollout")
+    print("evaluate: 8 envs x 20 steps through the rollout graph (17 "
+          "replays) equal bit for bit to the eager rollout")
+
+
+def td3_phase(card, rk):
+    """Phase 14: the TD3 trainer (BASELINE config 4) on the card. Prints
+    the seconds of each part."""
+    clock = PhaseClock()
+    state, params = td3_bench_runs(card, rk)
+    clock.done("  td3 bench")
+    td3_kernels(card, rk, state, params)
+    del state
+    clock.done("  td3 kernels")
+    td3_replays(params)
+    td3_evaluate(params)
+    clock.done("  td3 graphs, checkpoint, evaluate")
+    td3_card_vs_cpu(params)
+    clock.done("  td3 card vs CPU")
 
 
 if __name__ == "__main__":

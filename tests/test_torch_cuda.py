@@ -12,6 +12,8 @@ without JAX it runs on its own:
 Each test carries the `cuda` marker (registered in pytest.ini), which
 that command selects.
 """
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -21,6 +23,14 @@ from tinycarlo_torch.ops import rasterize as ras
 from tinycarlo_torch.ops import rasterize_kernels as rk
 
 pytestmark = pytest.mark.cuda
+
+# bit-repeatable cuBLAS products across streams, for the TD3 tests'
+# replayed graphs against eager steps (read at cuBLAS's first call)
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+# the masks and exact kernels' outputs: uint8 0/255, float32 and bfloat16
+# 0/1 (the TD3 trainer's encoder feed)
+OUT_DTYPES = [torch.uint8, torch.float32, torch.bfloat16]
 
 
 def _require_cuda():
@@ -51,7 +61,7 @@ CASES = [(1, 128, 160, 100), (2, 30, 48, 100), (3, 64, 160, 6),
 
 
 @pytest.mark.parametrize("t,h,w,kb", CASES)
-@pytest.mark.parametrize("out_dtype", [torch.uint8, torch.float32])
+@pytest.mark.parametrize("out_dtype", OUT_DTYPES)
 def test_masks_kernel_matches_plain(t, h, w, kb, out_dtype):
     """Bit-equal (the kernel is built with -fmad=false)."""
     _require_cuda()
@@ -80,7 +90,7 @@ CHUNK_CASES = [(2, 480, 640), (3, 480, 640), (1, 128, 160), (2, 100, 150),
 
 
 @pytest.mark.parametrize("t,h,w", CHUNK_CASES)
-@pytest.mark.parametrize("out_dtype", [torch.uint8, torch.float32])
+@pytest.mark.parametrize("out_dtype", OUT_DTYPES)
 def test_masks_kernel_chunks_and_empty_layers(t, h, w, out_dtype):
     """Bit-equal to the plain version where the kernel cuts frames into
     row chunks and on odd widths, with an env that has no live slot (env
@@ -216,7 +226,7 @@ EXACT_CASES = [(2, 128, 160, 100), (3, 30, 48, 100), (5, 64, 160, 6),
 
 
 @pytest.mark.parametrize("t,h,w,kb", EXACT_CASES)
-@pytest.mark.parametrize("out_dtype", [torch.uint8, torch.float32])
+@pytest.mark.parametrize("out_dtype", OUT_DTYPES)
 def test_exact_kernel_matches_plain(t, h, w, kb, out_dtype):
     """Bit-equal to its plain version (int32 arithmetic in both); float32
     output is 0/1."""
@@ -299,7 +309,7 @@ ENV_BLOCK_CASES = [(2, 128, 160, 100), (3, 480, 640, 100),
 
 
 @pytest.mark.parametrize("t,h,w,kb", ENV_BLOCK_CASES)
-@pytest.mark.parametrize("out_dtype", [torch.uint8, torch.float32])
+@pytest.mark.parametrize("out_dtype", OUT_DTYPES)
 def test_exact_kernel_env_blocks(t, h, w, kb, out_dtype):
     """The exact kernel bit-equal to its plain version where its chunks,
     boxes and units branch, with an empty env and a one-layer env."""
@@ -757,3 +767,121 @@ def test_gym_debug_step_on_the_card(monkeypatch, capsys):
         assert staged[4]["cte"] == fused[4]["cte"]
         assert len(staged[4]["local_path"]) == len(fused[4]["local_path"])
     assert "car step" in capsys.readouterr().out
+
+
+def _td3_loop(n_envs, seed, replay_size=10_000, resolution=(64, 80)):
+    """A BASELINE config 4 loop (classes frames at `resolution`, bfloat16
+    render and encoder) on the card, and its chunk arguments."""
+    from tinycarlo_torch.benchmarks import td3_bench
+    from tinycarlo_torch.models.tinycar_net import encoder_apply_fn
+    from tinycarlo_torch.train import td3
+    from tinycarlo_torch.train.evaluate import standard_stack
+    from tinycarlo_torch.train.td3_loop import LoopConfig, init_loop
+
+    params = td3_bench.make_params("cuda", resolution)
+    cfg = td3.TD3Config()
+    loop_cfg = LoopConfig(speed=0.4, replay_size=replay_size,
+                          obs_dtype=torch.bfloat16)
+    stack = standard_stack()
+    enc = encoder_apply_fn(td3_bench.make_encoder(params, torch.bfloat16))
+    state = init_loop(params, cfg, loop_cfg, n_envs, seed=seed, stack=stack)
+    return state, (params, cfg, loop_cfg, enc), stack
+
+
+def _equal_states(a, b):
+    from tinycarlo_torch.utils import graphs
+
+    ta, tb = graphs.tensors(a), graphs.tensors(b)
+    return len(ta) == len(tb) and all(torch.equal(x, y)
+                                      for x, y in zip(ta, tb))
+
+
+def test_td3_chunk_graphs_match_eager():
+    """9 steps of a 64-env loop through its replayed graphs (3 collect-only
+    steps, then critic-only and critic + actor updates; 6 replays) equal 9
+    eager steps from the same seed bit for bit, with torch's deterministic
+    algorithms on; the masks kernel launched once per eager step and
+    capture."""
+    _require_cuda()
+    from tinycarlo_torch.ops import rasterize_kernels as rk
+    from tinycarlo_torch.train.td3_loop import chunk
+    from tinycarlo_torch.utils import graphs
+
+    graphs.deterministic(True)
+    try:
+        a, args, stack = _td3_loop(64, seed=3)
+        b, _, _ = _td3_loop(64, seed=3)
+        before = rk.masks_kernel.launches
+        a, out_a = chunk(a, *args, 9, stack=stack)
+        launches = rk.masks_kernel.launches - before
+        b, out_b = chunk(b, *args, 9, stack=stack, graph=False)
+    finally:
+        graphs.deterministic(False)
+    rt = a.runtime
+    assert rt.replays == 6 and len(rt.graphs) == 3 and rt.eager_steps == 3
+    assert launches == rt.eager_steps + len(rt.graphs)
+    assert _equal_states(a, b)
+    assert all(torch.equal(out_a[k], out_b[k]) for k in out_a)
+    assert bool((out_a["critic1_loss"][3:] != 0).all())
+    assert bool((out_a["actor_loss"][4::2] != 0).all())
+
+
+def test_td3_checkpoint_restores_into_a_captured_loop(tmp_path):
+    """A checkpoint restored into the loop whose graphs are captured
+    (copy_ into their static tensors) replays the same next chunk."""
+    _require_cuda()
+    from tinycarlo_torch.train.td3_loop import chunk
+    from tinycarlo_torch.utils import checkpoint, graphs
+
+    graphs.deterministic(True)
+    try:
+        a, args, stack = _td3_loop(64, seed=4)
+        a, _ = chunk(a, *args, 8, stack=stack)
+        path = str(tmp_path / "loop.pt")
+        checkpoint.save(path, a)
+        a, first = chunk(a, *args, 8, stack=stack)
+        graphs_before = dict(a.runtime.graphs)
+        checkpoint.restore(path, a)
+        a, again = chunk(a, *args, 8, stack=stack)
+    finally:
+        graphs.deterministic(False)
+    assert a.runtime.graphs == graphs_before  # no new capture
+    assert all(torch.equal(first[k], again[k]) for k in first)
+
+
+def test_rollout_graph_matches_eager():
+    """vector.rollout on the card: 12 steps of a rendering Stanley rollout
+    through its replayed graph (3 eager, 9 replays) equal the eager
+    rollout bit for bit, respawns included."""
+    _require_cuda()
+    from tinycarlo_torch import env as fenv
+    from tinycarlo_torch import vector
+    from tinycarlo_torch.benchmarks import bench as pbench
+    from tinycarlo_torch.train.stanley import stanley_steering
+
+    params = fenv.make_env_params(pbench.CONFIG)
+    n = 128
+
+    def policy(obs, env_state, generator):
+        info = fenv._info(params, env_state)
+        steer = torch.clamp(stanley_steering(
+            info["cte"], info["heading_error"], 0.5, 5.0, 30.0), -1.0, 1.0)
+        return {"car_control": torch.stack(
+            [torch.full_like(steer, 0.5), steer], -1),
+            "maneuver": torch.zeros(n, dtype=torch.int32, device="cuda")}
+
+    outs = []
+    for graph in (True, False):
+        vstate, _ = vector.reset(params, n, seed=6, render=False)
+        stats = {}
+        final, traj = vector.rollout(params, vstate, policy, 12,
+                                     max_episode_steps=5, graph=graph,
+                                     info_keys=("position",), stats=stats)
+        outs.append((final, traj, stats))
+    (fa, ta, sa), (fb, tb, sb) = outs
+    assert sa == {"replays": 9, "captures": 1} and sb == {}
+    assert bool(ta["truncated"].any())
+    assert set(ta) == set(tb)
+    assert all(torch.equal(ta[k], tb[k]) for k in ta)
+    assert torch.equal(fa.env.car.position, fb.env.car.position)
+

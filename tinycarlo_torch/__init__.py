@@ -30,9 +30,33 @@ Entry points take `device=` and default to "cuda"; they raise when no GPU
 is present instead of carrying on on the CPU. Tests pass `device="cpu"`,
 where each kernel's plain PyTorch version stands in for the kernel.
 
+- training: the TD3 learner (train/td3.py), its replay buffer and the
+  fused rollout + replay + update loop (train/td3_loop.py), each chunk a
+  sequence of replayed CUDA graphs on the card; `vector.rollout`;
+  checkpoints (utils/checkpoint.py) and profiling (utils/profiling.py).
+
 This package imports torch, numpy and yaml, and gymnasium where it is
-installed: never jax, flax or tinycarlo_tpu.
+installed: never jax, flax or tinycarlo_tpu. Its top level exports the
+JAX package's names: the config classes, the functional env and `vector`.
 """
+from tinycarlo_torch.config import (  # noqa: F401
+    CameraConfig,
+    CarConfig,
+    EnvConfig,
+    MapConfig,
+    SimConfig,
+    load_config,
+)
+from tinycarlo_torch.env import (  # noqa: F401
+    EnvParams,
+    EnvState,
+    make_env_params,
+    render_observation,
+    render_observation_batch,
+    reset,
+    step,
+)
+from tinycarlo_torch import vector  # noqa: F401
 
 try:  # gymnasium is optional: without it the shim subclasses stand-ins
     from gymnasium.envs.registration import register, registry

@@ -62,6 +62,7 @@ import torch
 from tinycarlo_torch import env as fenv
 from tinycarlo_torch import vector
 from tinycarlo_torch.train.stanley import stanley_steering
+from tinycarlo_torch.utils import graphs
 from tinycarlo_torch.utils.helper import (card_clocks, card_line,
                                           resolve_device)
 
@@ -163,29 +164,24 @@ def capture(params, body, vstate, info, checksum, warmup: int = WARMUP):
     graph). Returns (graph, (vstate, info, checksum)): the static state,
     which every `graph.replay()` advances by one step. Raises unless the
     render kernel was launched exactly once during the capture."""
-    stream = torch.cuda.Stream()
-    stream.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(stream):
-        for _ in range(warmup):
-            vstate, info, checksum, _, _ = body(vstate, info, checksum)
-    torch.cuda.current_stream().wait_stream(stream)
-    torch.cuda.synchronize()
+    carry = [vstate, info, checksum]
+
+    def eager():
+        carry[:] = body(*carry)[:3]
+
+    graphs.warm_up(eager, warmup)
+    vstate, info, checksum = carry
     info = {"cte": info["cte"], "heading_error": info["heading_error"]}
     static = carried(vstate, info, checksum)
-    if len({t.data_ptr() for t in static}) != len(static):
-        raise RuntimeError("the step's carried tensors share storage")
-    kernel = fenv.render_kernel(params)
-    before = kernel.launches
-    graph = torch.cuda.CUDAGraph()
-    graph.register_generator_state(vstate.generator)
-    with torch.cuda.graph(graph):
+    graphs.check_distinct(static, "bench")
+
+    def step():
         out = body(vstate, info, checksum)
         for dst, src in zip(static, carried(*out[:3])):
             dst.copy_(src)
-    captured = kernel.launches - before
-    if captured != 1:
-        raise RuntimeError(f"the captured step launched the {kernel.NAME} "
-                           f"kernel {captured} times, not once")
+
+    graph = graphs.capture(step, fenv.render_kernel(params),
+                           generators=(vstate.generator,))
     return graph, (vstate, info, checksum)
 
 

@@ -10,7 +10,7 @@ takes a batch of B environments with the batch axis out front:
 
 Observations follow `sim.observation_space_format` (shapes in
 `observation_shape`): "classes" masks (B, L, H, W) uint8 0/255 (or float32
-0/1 with `out_dtype=torch.float32`) from the masks kernel, or the rank
+or bfloat16 0/1 with `out_dtype`) from the masks kernel, or the rank
 kernel's (B, H, W) layer-rank map -- "rank" itself, or decoded to "rgb"
 (B, H, W, 3) and "rgb_planar" (B, 3, H, W) uint8. Both kernels read the
 compaction of the packed camera projection. With `camera.stroke: exact`
@@ -158,9 +158,10 @@ def render_observation_batch(
     returns them, rank, rgb and rgb_planar decode them.
     tinycarlo_tpu.env.render_observation_batch (env.py:245-319).
 
-    `out_dtype=None` keeps the observation contract (uint8); float32 gives
-    0/1 class masks straight from the masks (or exact) kernel for in-graph
-    consumers, and is only defined for classes."""
+    `out_dtype=None` keeps the observation contract (uint8); float32 or
+    bfloat16 gives 0/1 class masks straight from the masks (or exact)
+    kernel for in-graph consumers such as the TD3 trainer's encoder feed
+    (tinycarlo_tpu/env.py:256-266), and is only defined for classes."""
     fmt = _check_format(params, fmt)
     if out_dtype is not None and fmt != "classes":
         raise ValueError("float out_dtype is only defined for classes masks")

@@ -10,12 +10,22 @@ rows (flattened NHWC) to match.
 
 `load_pretrained` returns the combo bundled with the JAX package
 (tinycarlo_tpu/models/pretrained/*.npz, trained by examples/
-train_stanley_il.py), read as data with numpy. The reference's URL
-download is not ported. The temporal actor and the critics come with TD3
-(ROADMAP M14).
+train_stanley_il.py), read as data with numpy; `load_torch_state_dict`
+reads a reference-format torch checkpoint of the combo. The reference's
+URL download is not ported.
+
+The TD3 nets (tinycar_net.py:164-265): the maneuver-conditioned critic and
+the temporal actor and critic, whose `_TemporalConv` convolves the
+(B, seq_len, F) feature queue as it stands -- seq_len is the Conv1d
+channel axis and the 256 features its length, as in the reference; the
+flax version swaps axes to get that layout. `flax_init_` gives a module
+flax's default initialisers (lecun-normal kernels, zero biases), drawn from
+a torch.Generator, so that a fresh learner starts from the distribution
+`td3.create` draws from (torch's defaults are kaiming-uniform).
 """
 from __future__ import annotations
 
+import math
 import os
 from typing import Dict, Optional, Sequence, Tuple
 
@@ -61,6 +71,15 @@ def pre_obs(obs: torch.Tensor) -> torch.Tensor:
     if x.shape[-1] in (1, 3):  # (B, H, W, C) -> (B, C, H, W)
         x = x.permute(0, 3, 1, 2)
     return x.contiguous()
+
+
+def one_hot(m: torch.Tensor, n: int,
+            dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """(B,) integer maneuvers -> (B, n) one-hots of `dtype`, without the
+    host sync of torch.nn.functional.one_hot's range check (so a CUDA
+    graph can capture it)."""
+    ids = torch.arange(n, device=m.device)
+    return (m.long()[:, None] == ids).to(dtype)
 
 
 def pre_obs_rank(obs: torch.Tensor, n_layers: int) -> torch.Tensor:
@@ -173,6 +192,165 @@ class TinycarCombo(nn.Module):
 
     def forward(self, x, m):
         return self.actor(self.encoder(x), m)
+
+
+class _TemporalConv(nn.Module):
+    """Dilated Conv1d stack over a (B, seq_len, F) feature queue: seq_len
+    is the channel axis and F the length, dilations (and paddings) 1, 2,
+    4, a ReLU after each, then the mean over channels -> (B, F).
+    Reference: tinycar_net.py:76-78,88-90,152-154,166-168."""
+
+    def __init__(self, seq_len: int, channels: Sequence[int]):
+        super().__init__()
+        chans = (seq_len,) + tuple(channels)
+        self.convs = nn.ModuleList(
+            nn.Conv1d(chans[i], chans[i + 1], 3, dilation=d, padding=d)
+            for i, d in enumerate((1, 2, 4))
+        )
+
+    def forward(self, f):
+        for conv in self.convs:
+            f = torch.relu(conv(f))
+        return f.mean(dim=1)
+
+
+class TinycarActorTemporal(nn.Module):
+    """(B, seq_len, F) feature queue + maneuver one-hot -> (B, A) actions.
+    Reference: tinycar_net.py:73-98."""
+
+    def __init__(self, in_features: int = FEATURE_VEC_SIZE,
+                 maneuver_dim: int = DEFAULT_M_DIM,
+                 action_dim: int = DEFAULT_A_DIM, seq_len: int = 5):
+        super().__init__()
+        self.maneuver_dim = maneuver_dim
+        self.temporal = _TemporalConv(seq_len, (32, 16, 16))
+        self.trunk = _ManeuverTrunk(maneuver_dim, in_features)
+        self.head = _ActorHead(in_features, action_dim)
+
+    def forward(self, f, m):
+        return self.head(self.temporal(f), self.trunk(m))
+
+
+class TinycarCritic(nn.Module):
+    """(feature, maneuver, action) -> Q. Reference: tinycar_net.py:132-145."""
+
+    def __init__(self, maneuver_dim: int = DEFAULT_M_DIM,
+                 action_dim: int = DEFAULT_A_DIM):
+        super().__init__()
+        self.fcm = nn.Linear(maneuver_dim, FEATURE_VEC_SIZE)
+        self.fca = nn.Linear(action_dim, FEATURE_VEC_SIZE)
+        self.fc1 = nn.Linear(3 * FEATURE_VEC_SIZE, 512)
+        self.fc2 = nn.Linear(512, 1)
+
+    def features(self, f):
+        return f
+
+    def forward(self, f, m, a):
+        m = torch.relu(self.fcm(m))
+        a = torch.relu(self.fca(a))
+        out = torch.cat([self.features(f), m, a], dim=-1)
+        return self.fc2(torch.relu(self.fc1(out)))
+
+
+class TinycarCriticTemporal(TinycarCritic):
+    """(feature queue, maneuver, action) -> Q.
+    Reference: tinycar_net.py:147-166."""
+
+    def __init__(self, maneuver_dim: int = DEFAULT_M_DIM,
+                 action_dim: int = DEFAULT_A_DIM, seq_len: int = 5):
+        super().__init__(maneuver_dim, action_dim)
+        self.temporal = _TemporalConv(seq_len, (16, 16, 16))
+
+    def features(self, f):
+        return self.temporal(f)
+
+
+# flax's truncated normal: a standard normal cut to [-2, 2] has this
+# standard deviation (flax.linen.initializers.variance_scaling)
+_TRUNC_STD = 0.87962566103423978
+
+
+def flax_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Re-initialise `module` in place as flax.linen does by default:
+    every Linear and Conv kernel lecun-normal (a normal truncated to two
+    standard deviations, scaled to variance 1 / fan_in), every bias zero,
+    BatchNorm scale 1, bias 0 and running statistics 0 / 1. Draws come
+    from `generator`, in the order of `module.modules()`."""
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, (nn.Linear, nn.Conv1d, nn.Conv2d)):
+                std = math.sqrt(1.0 / m.weight[0].numel()) / _TRUNC_STD
+                nn.init.trunc_normal_(m.weight, 0.0, std, -2.0 * std,
+                                      2.0 * std, generator=generator)
+                m.bias.zero_()
+            elif isinstance(m, nn.BatchNorm2d):
+                m.reset_parameters()
+    return module
+
+
+def encoder_flat_features(h: int, w: int,
+                          filters: Sequence[int] = (24, 36, 48, 64, 64)
+                          ) -> int:
+    """`TinycarEncoder`'s flat_features for (h, w) frames: each stride-2
+    block takes a side n to ceil(n / 2)."""
+    for _ in filters:
+        h, w = (h + 1) // 2, (w + 1) // 2
+    return filters[-1] * h * w
+
+
+def encoder_apply_fn(encoder: nn.Module):
+    """`encoder_apply(obs) -> (B, 256) features` of a frozen encoder, for
+    the TD3 loop: `pre_obs`, then the frames cast to the encoder's dtype
+    (0/1 masks in float32 or bfloat16 are exact in either; a float32
+    Conv2d refuses a bfloat16 input, which flax would promote), and no
+    autograd. The features come in the encoder's dtype."""
+    dtype = next(encoder.parameters()).dtype
+
+    def apply(obs):
+        with torch.no_grad():
+            return encoder(pre_obs(obs).to(dtype))
+
+    return apply
+
+
+def _encoder_out_hw(sd: Dict[str, torch.Tensor]) -> Tuple[int, int, int]:
+    """The conv stack's output (C, H, W) from fc1's input size, given its
+    64 channels and the reference resolutions. tinycar_net.py:343-353."""
+    in_size = sd["encoder.fc1.weight"].shape[1]
+    c = 64
+    hw = in_size // c
+    # the two reference aspect ratios: 128x160 -> 4x5, 64x160 -> 2x5
+    for h, w in ((4, 5), (2, 5), (8, 10)):
+        if h * w == hw:
+            return c, h, w
+    raise ValueError(f"unrecognized encoder output size {in_size}")
+
+
+def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    """A reference TinycarCombo torch checkpoint (examples/models/
+    tinycar_net.py:9-13,113-129) -> the state dict of the port's
+    `TinycarCombo`, on the CPU. The key map of tinycarlo_tpu's
+    `load_torch_state_dict` (tinycar_net.py:293-336): the encoder's keys
+    as they are (both flatten NCHW, so fc1 needs no permutation), the
+    actor's fcm1-3 under `actor.trunk`, fc1-4 under `actor.head`."""
+    sd = torch.load(path, map_location="cpu")
+    _encoder_out_hw(sd)
+    out: Dict[str, torch.Tensor] = {}
+    for i in range(5):
+        for part in ("conv1.weight", "conv1.bias", "bn1.weight", "bn1.bias",
+                     "bn1.running_mean", "bn1.running_var"):
+            key = f"encoder.convs.{i}.{part}"
+            out[key] = sd[key].float()
+        out[f"encoder.convs.{i}.bn1.num_batches_tracked"] = torch.tensor(0)
+    for part in ("weight", "bias"):
+        out[f"encoder.fc1.{part}"] = sd[f"encoder.fc1.{part}"].float()
+        for j in range(3):
+            out[f"actor.trunk.fcm{j + 1}.{part}"] = (
+                sd[f"actor.fcm{j + 1}.{part}"].float())
+        for j in range(4):
+            out[f"actor.head.fc{j + 1}.{part}"] = (
+                sd[f"actor.fc{j + 1}.{part}"].float())
+    return out
 
 
 def load_variables_npz(path: str) -> Dict:

@@ -20,7 +20,7 @@
 // layer) is a register fill of zeros (`fill_span`) and uses no shared
 // memory. `env_frames` is the chunk loop, in one of two shapes:
 //   masks (B, L, h, w): items (layer, chunk), each layer's units stamped
-//     with the value `one` (255, or 1.0f);
+//     with the value `one` (255, 1.0f or bfloat16's 1.0: `One`);
 //   ranks (B, h, w) uint8: items (chunk), the layers' units stamped in
 //     paint order, a barrier between two stamped layers, each store l + 1
 //     -- cv2's order: the last store at a pixel is 1 + its highest layer,
@@ -55,6 +55,8 @@
 // its rows' spans, not its whole box.
 #pragma once
 
+#include <cuda_bf16.h>
+
 #include "stamp.cuh"
 #include "store.cuh"
 
@@ -69,14 +71,29 @@ constexpr int kUnitPixels = 1024;
 // the bundle's idx carries 7 pad slots after its k slots
 constexpr int kPadSlots = 7;
 
+// The output types of the masks and exact launches (`out_kind`; the
+// wrappers' `_OUT_KINDS` in ops/rasterize_kernels.py).
+enum OutKind { kOutUint8 = 0, kOutFloat32 = 1, kOutBfloat16 = 2 };
+
 // A copy's work units: n slabs of `rows` frame rows from row y0.
 struct Units {
   int n, y0, rows;
 };
 
+// The value a lit pixel of a mask stores: 255, 1.0f, or bfloat16's 1.0,
+// set from its bits (0x3F80), with no conversion from float.
 template <typename T> struct One;
-template <> struct One<uint8_t> { static constexpr uint8_t value = 255; };
-template <> struct One<float> { static constexpr float value = 1.f; };
+template <> struct One<uint8_t> {
+  static __device__ __forceinline__ uint8_t value() { return 255; }
+};
+template <> struct One<float> {
+  static __device__ __forceinline__ float value() { return 1.f; }
+};
+template <> struct One<__nv_bfloat16> {
+  static __device__ __forceinline__ __nv_bfloat16 value() {
+    return __ushort_as_bfloat16((unsigned short)0x3F80);
+  }
+};
 
 // A launch's row chunks and bucket records.
 struct Chunks {
@@ -300,8 +317,10 @@ __device__ __forceinline__ void env_frames(const S& sl, const C& c,
       const int ue = je > 0 ? sh.rec_p[je - 1] : 0;
       if (ub == ue) continue;
       if (kRank && stamped) __syncthreads();  // the lower layer lands first
+      T value = one;
+      if constexpr (kRank) value = (T)(l + 1);
       stamp_units(c, g, env, sh, jb, je, ub, ue, q.n > 1, cy0, cy1, chunk,
-                  kRank ? (T)(l + 1) : one);
+                  value);
       stamped = true;
     }
     if (!stamped) {  // nothing to stamp: zeros from registers
@@ -467,7 +486,7 @@ direct_soa_kernel(Params p, uint8_t* __restrict__ out, Chunks q, float pad) {
   extern __shared__ __align__(16) uint8_t smem[];
   env_frames<false>(DirectSlots{p, p.counts, p.bw},
                     FastCopies<Gran, true>{p, pad}, p, out, q,
-                    One<uint8_t>::value, smem);
+                    One<uint8_t>::value(), smem);
 }
 
 // Launches `direct_soa_kernel<Gran>` over p.B blocks. Returns the CUDA

@@ -108,8 +108,8 @@ __global__ void __launch_bounds__(kEnvThreads)
 env_seg_kernel(Params p, uint8_t* __restrict__ out, Chunks q, float pad) {
   extern __shared__ __align__(16) uint8_t smem[];
   env_frames<false>(SegSlots{{p, p.counts, p.idx, p.bw}},
-                    SegCopies<Gran>{{p, pad}}, p, out, q, One<uint8_t>::value,
-                    smem);
+                    SegCopies<Gran>{{p, pad}}, p, out, q,
+                    One<uint8_t>::value(), smem);
 }
 
 template <int Gran>

@@ -23,10 +23,10 @@
 //     coordinate (v0 + k*st) >> 16) or its normalized-far dot;
 //   - or a cap row: |xi - cx| <= the cap table's half-width at |yi - cy|.
 // All fields arrive shifted into block-local lanes / stacked strip rows.
-// uint8 output is 0/255 and float32 0/1; the Pallas kernel stores 255 into
-// its float scratch and emits 0/255 for a float output (ROADMAP F0), which
-// this kernel does not copy. Dead layers and envs with no live slot are
-// written as zeros.
+// uint8 output is 0/255, float32 and bfloat16 0/1; the Pallas kernel
+// stores 255 into its float scratch and emits 0/255 for a float output
+// (ROADMAP F0), which this kernel does not copy. Dead layers and envs with
+// no live slot are written as zeros.
 //
 // Arithmetic. int32 throughout, as the plain version's torch int32 ops:
 // the products and sums that can leave the int32 range on pixels outside
@@ -300,7 +300,7 @@ exact_kernel(ExactParams p, T* __restrict__ out, Chunks q) {
   for (int i = threadIdx.x; i < kMaxCap; i += kEnvThreads) cap[i] = p.cap[i];
   __syncthreads();
   env_frames<false>(IdxSlots{p, p.counts, p.idx, p.f[kFields - 1]},
-                    ExactCopies{p, fields, cap}, p, out, q, One<T>::value,
+                    ExactCopies{p, fields, cap}, p, out, q, One<T>::value(),
                     smem);
 }
 
@@ -323,7 +323,7 @@ int launch(const ExactParams& p, T* out, cudaStream_t stream) {
 // bundle's fields, and the cap table's `ncap` half-widths.
 extern "C" int tc_exact_launch(
     const int32_t* counts, const int32_t* idx, const int32_t* const* fields,
-    void* out, int out_float, int B, int L, int h, int w, int kp, int le,
+    void* out, int out_kind, int B, int L, int h, int w, int kp, int le,
     const int32_t* cap, int ncap, void* stream) {
   if (ncap < 1 || ncap > kMaxCap) return (int)cudaErrorInvalidValue;
   ExactParams p;
@@ -336,8 +336,13 @@ extern "C" int tc_exact_launch(
   // the stroke's extent at the cap radius, ncap - 1, plus the margin
   p.pad = (float)(ncap - 1) + 2.f + kBoxMargin;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (out_float) {
-    return launch<float>(p, static_cast<float*>(out), s);
+  switch (out_kind) {
+    case tc::kOutUint8:
+      return launch<uint8_t>(p, static_cast<uint8_t*>(out), s);
+    case tc::kOutFloat32:
+      return launch<float>(p, static_cast<float*>(out), s);
+    case tc::kOutBfloat16:
+      return launch<__nv_bfloat16>(p, static_cast<__nv_bfloat16*>(out), s);
   }
-  return launch<uint8_t>(p, static_cast<uint8_t*>(out), s);
+  return (int)cudaErrorInvalidValue;
 }

@@ -6,7 +6,8 @@
 // Replaces the two Pallas kernels of the JAX package's main path, which
 // compute the same masks and differ only in how a frame leaves VMEM:
 //   tinycarlo_tpu/ops/rasterize_pallas.py `_kernel_env_idx` (:1931, blocked
-//   output; uint8 0/255 or float 0/1) and `_kernel_env_dma` (:2107, uint8
+//   output; uint8 0/255 or float 0/1: float32, or bfloat16 for the TD3
+//   trainer's encoder feed) and `_kernel_env_dma` (:2107, uint8
 //   staged through multi-buffered DMA). Both run `_tier_loops` (:1664) over
 //   the `_window_hit` stamp (:134).
 //
@@ -28,9 +29,12 @@
 // to the copy's bands and lanes) cut into slabs of rows. The block's 4 warps
 // take a layer's units round robin; a warp walks its unit's pixels
 // (`FastCopies`), lanes on neighbouring columns, tests them and writes the
-// output value (255, or 1.0f) straight into a zeroed chunk buffer laid out
-// at the destination's 16-byte phase, so only output lanes of a box are
-// tested. `window_hit` is
+// output value (255, 1.0f or bfloat16's 1.0) straight into a zeroed chunk
+// buffer laid out at the destination's 16-byte phase, so only output lanes
+// of a box are tested. A chunk's first byte lies at the phase of its
+// offset, an element multiple, so a 1-, 2- or 4-byte element stays aligned
+// in the buffer at any row width (48, 150, 160 and 640 are checked), and
+// the buffer's 16 bytes of slack hold any phase. `window_hit` is
 // called with the same apx/apy floats as the plain version (integer valued,
 // exact), so the masks stay bit-equal. The chunk then leaves through
 // store.cuh's 16-byte streaming stores (the fill probe's path), which zero the
@@ -65,7 +69,7 @@ __global__ void __launch_bounds__(kEnvThreads)
 masks_kernel(Params p, T* __restrict__ out, Chunks q, float pad) {
   extern __shared__ __align__(16) uint8_t smem[];
   env_frames<false>(IdxSlots{p, p.counts, p.idx, p.bw}, FastCopies<>{p, pad},
-                    p, out, q, One<T>::value, smem);
+                    p, out, q, One<T>::value(), smem);
 }
 
 template <typename T>
@@ -87,7 +91,7 @@ int launch(const Params& p, T* out, cudaStream_t stream) {
 extern "C" int tc_masks_launch(
     const int32_t* counts, const int32_t* idx, const float* ax,
     const float* ay, const float* abx, const float* aby, const float* inv,
-    const int32_t* bw, void* out, int out_float, int B, int L, int h, int w,
+    const int32_t* bw, void* out, int out_kind, int B, int L, int h, int w,
     int kp, int le, int bres, float lat2, float cap2, void* stream) {
   tc::Params p;
   tc::set_geometry(p, B, L, h, w, kp, le);
@@ -103,6 +107,13 @@ extern "C" int tc_masks_launch(
   p.lat2 = lat2;
   p.cap2 = cap2;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (out_float) return launch<float>(p, static_cast<float*>(out), s);
-  return launch<uint8_t>(p, static_cast<uint8_t*>(out), s);
+  switch (out_kind) {
+    case tc::kOutUint8:
+      return launch<uint8_t>(p, static_cast<uint8_t*>(out), s);
+    case tc::kOutFloat32:
+      return launch<float>(p, static_cast<float*>(out), s);
+    case tc::kOutBfloat16:
+      return launch<__nv_bfloat16>(p, static_cast<__nv_bfloat16*>(out), s);
+  }
+  return (int)cudaErrorInvalidValue;
 }

@@ -976,7 +976,7 @@ def _frames_from_strips(strip, h, w, nxb, wb):
 
 def _masks_from_hits(hits, bsz, n_layers, resolution, out_dtype, device,
                      geometry=None):
-    """(B, L, H, W) masks, uint8 0/255 or float32 0/1, with the hits of a
+    """(B, L, H, W) masks, uint8 0/255 or float 0/1, with the hits of a
     `_window_hits`-style generator set in a (B, L*nxb, hp, wb) strip, of
     the production `_frame_geometry` unless `geometry` gives another."""
     h, w = resolution
@@ -1002,8 +1002,8 @@ def rasterize_masks_env_plain(
     out_dtype: torch.dtype = torch.uint8,
 ) -> torch.Tensor:
     """Plain PyTorch version of the masks kernel: (B, L, H, W) masks from a
-    `compact_env_idx_soa` bundle, `out_dtype` uint8 (0/255) or float32
-    (0/1). Same function and same float arithmetic as ops/csrc/masks.cu:
+    `compact_env_idx_soa` bundle, `out_dtype` uint8 (0/255), float32 or
+    bfloat16 (0/1). Same function and same float arithmetic as ops/csrc/masks.cu:
     the hits of `_plain_hits` set in the frames' strips."""
     return _masks_from_hits(
         _plain_hits(bundle, resolution, thickness), bundle[-1].shape[1],
@@ -1282,10 +1282,15 @@ class _Kernel:
         return out
 
 
-def _check_out_dtype(name: str, out_dtype: torch.dtype) -> None:
-    if out_dtype not in (torch.uint8, torch.float32):
+# The C launches' `out_kind` of each output dtype (env_block.cuh OutKind).
+_OUT_KINDS = {torch.uint8: 0, torch.float32: 1, torch.bfloat16: 2}
+
+
+def _out_kind(name: str, out_dtype: torch.dtype) -> int:
+    if out_dtype not in _OUT_KINDS:
         raise ValueError(f"{name} kernel: out_dtype {out_dtype} not in "
-                         "(uint8, float32)")
+                         "(uint8, float32, bfloat16)")
+    return _OUT_KINDS[out_dtype]
 
 
 class _BundleKernel(_Kernel):
@@ -1332,7 +1337,7 @@ class MasksKernel(_BundleKernel):
     NAME = "masks"
     SYMBOL = "tc_masks_launch"
     # tc_masks_launch's C signature: 9 pointers (the bundle, out), 8 ints
-    # (out_float, B, L, h, w, kp, le, bres), lat2, cap2 and the stream
+    # (out_kind, B, L, h, w, kp, le, bres), lat2, cap2 and the stream
     ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
                 + [ctypes.c_float] * 2 + [ctypes.c_void_p])
 
@@ -1344,18 +1349,18 @@ class MasksKernel(_BundleKernel):
         thickness: int,
         out_dtype: torch.dtype = torch.uint8,
     ) -> torch.Tensor:
+        kind = _out_kind(self.NAME, out_dtype)
         if bundle[0].device.type == "cpu":
             return rasterize_masks_env_plain(
                 bundle, n_layers, resolution, thickness, out_dtype
             )
-        _check_out_dtype(self.NAME, out_dtype)
         h, w = resolution
         self._check(bundle, n_layers, w)
         bsz, le = bundle[1].shape
         out = torch.empty((bsz, n_layers, h, w), dtype=out_dtype,
                           device=bundle[1].device)
         return self._launch(bundle, out, (
-            int(out_dtype == torch.float32), bsz, n_layers, h, w,
+            kind, bsz, n_layers, h, w,
             bundle[0].shape[1], le,
         ), thickness)
 
@@ -1403,12 +1408,12 @@ class ExactKernel(_Kernel):
     """The exact kernel's wrapper: `ops/csrc/exact.cu` on CUDA tensors,
     `rasterize_masks_exact_env_plain` on CPU tensors. Takes a
     `compact_env_exact_soa` bundle; output (B, L, H, W) uint8 0/255 or
-    float32 0/1."""
+    float32 or bfloat16 0/1."""
 
     NAME = "exact"
     SYMBOL = "tc_exact_launch"
     # tc_exact_launch's C signature: 3 pointers (counts, idx, the host
-    # array of the 30 field pointers), out, 7 ints (out_float, B, L, h, w,
+    # array of the 30 field pointers), out, 7 ints (out_kind, B, L, h, w,
     # kp, le), the host cap table, its length and the stream
     ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
                 + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
@@ -1422,11 +1427,11 @@ class ExactKernel(_Kernel):
         out_dtype: torch.dtype = torch.uint8,
     ) -> torch.Tensor:
         idx, fields, counts = bundle
+        kind = _out_kind(self.NAME, out_dtype)
         if idx.device.type == "cpu":
             return rasterize_masks_exact_env_plain(
                 bundle, n_layers, resolution, thickness, out_dtype
             )
-        _check_out_dtype(self.NAME, out_dtype)
         h, w = resolution
         bsz, le = fields[0].shape
         if len(fields) != EXACT_FIELDS:
@@ -1452,7 +1457,7 @@ class ExactKernel(_Kernel):
         caps = (ctypes.c_int * len(table))(*table)
         return self._run(
             out, counts.data_ptr(), idx.data_ptr(), ctypes.addressof(ptrs),
-            out.data_ptr(), int(out_dtype == torch.float32), bsz, n_layers,
+            out.data_ptr(), kind, bsz, n_layers,
             h, w, idx.shape[1], le, ctypes.addressof(caps), len(table),
         )
 
@@ -1615,7 +1620,7 @@ def rasterize_masks_packed_soa(
     (rasterize_pallas.py:2388-2503). The fast stroke (and t = 1) goes
     through `compact_env_idx_soa` and the masks kernel, `stroke="exact"`
     at t >= 2 through `compact_env_exact_soa` and the exact kernel
-    (:2427-2444). uint8 gives 0/255 masks, float32 0/1 masks."""
+    (:2427-2444). uint8 gives 0/255 masks, float32 and bfloat16 0/1 masks."""
     if _exact(thickness, stroke):
         compact, kernel = compact_env_exact_soa, exact_kernel
     else:

@@ -1,0 +1,355 @@
+"""The fused TD3 actor-learner: rollout, replay and updates on the device.
+
+Counterpart of tinycarlo_tpu/train/td3_loop.py:38-280 (reference:
+examples/train_td3.py:174-207). A chunk steps B parallel envs T times;
+each step encodes the observations with a frozen encoder, explores with OU
+noise, inserts the transitions into the replay buffer and runs the TD3
+updates, all on the device. The semantics the JAX module lists (:11-19):
+  * the frozen encoder's features feed a (seq_len + 1) feature queue that
+    is rolled, never cleared, across episode boundaries;
+  * replay rows are (queue[1:], m, a, r, queue[:-1]);
+  * OU noise resets and a fresh maneuver in {0, 1, 2} is drawn when an
+    episode ends, and maneuver 2 goes to the env as 3;
+  * updates start once the buffer holds a full batch, after the step's
+    insert; `updates_per_step` of them a step, 0 included;
+  * OU sigma is constant within an episode: at an episode's end it takes
+    the host-set level `sigma_target`, or with `total_episodes` the
+    reference's 0.4 * (1 - e / EPISODES) from the env's own count e.
+The SP renderer's `obs_render_fn` (:128-141) is not ported (M16).
+
+On the card a chunk is a sequence of replayed CUDA graphs, not one graph
+of T steps (at ~2000 kernels a step that would be 400k nodes). A step's
+two branches -- whether the buffer holds a batch (:229-232) and whether an
+update is an actor step (td3.py:211-213) -- are functions of the step
+count, which the host counts: so the loop captures one graph per kind of
+step (collect only; critic-only updates; critic + actor), the first step
+of each kind run eagerly on a side stream before its capture, and replays
+them in the order the counts give. The graphs share one memory pool and
+write everything into the state's own tensors and into (T, ...) output
+buffers at a device-side step index; they live on the state
+(`LoopState.runtime`), so a field of the state is only ever written with
+`copy_` (`sigma_target` between chunks, `utils.checkpoint.restore`).
+
+The state changes in place (the JAX package's chunk is pure): the replay
+buffer alone holds 2 GB at config 4's 100 000 slots.
+
+Random draws come from the state's torch.Generators (the loop's and the
+env's respawn stream); `draws` injects them instead, for the parity tests.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import torch
+
+from tinycarlo_torch import env as fenv
+from tinycarlo_torch import vector
+from tinycarlo_torch.models.tinycar_net import FEATURE_VEC_SIZE, one_hot
+from tinycarlo_torch.train import replay as rb
+from tinycarlo_torch.train import td3
+from tinycarlo_torch.utils import graphs
+from tinycarlo_torch.wrapper.functional import WrapperStack
+
+# the initial OU sigma (train_td3.py:143)
+SIGMA0 = 0.4
+
+
+@dataclass(frozen=True)
+class LoopConfig:
+    """Rollout-side knobs; the defaults of tinycarlo_tpu's LoopConfig
+    (train_td3.py:25-48). `obs_dtype`: None renders the uint8 observation
+    contract (the encoder gets `pre_obs` of it); torch.float32 or
+    torch.bfloat16 (classes only) has the masks kernel write 0/1 masks in
+    that dtype straight for the encoder. Ignored when the wrapper stack
+    has observation fns. `total_episodes`: planned episodes per env for
+    the in-graph sigma decay; None keeps the host-set `sigma_target`."""
+
+    speed: float = 0.4
+    steering_shift: float = 0.0
+    max_episode_steps: int = 1000
+    replay_size: int = 500_000
+    updates_per_step: int = 1
+    obs_dtype: Optional[torch.dtype] = None
+    total_episodes: Optional[int] = None
+
+
+@dataclass
+class LoopState:
+    vstate: vector.VecState
+    queue: torch.Tensor  # (B, seq_len + 1, F)
+    noise: torch.Tensor  # (B, action_dim)
+    maneuver: torch.Tensor  # (B,) int32
+    buf: rb.ReplayBuffer
+    td3_state: td3.TD3State
+    generator: torch.Generator  # OU, eviction, sample and maneuver draws
+    sigma: torch.Tensor  # (B,) per-env OU sigma
+    sigma_target: torch.Tensor  # () the host-set level
+    ep_count: torch.Tensor  # (B,) int32 completed episodes
+    # the host's copies of buf.filled and td3_state.steps, which decide
+    # each step's kind without reading the device
+    filled_host: int = 0
+    steps_host: int = 0
+    # the captured graphs and their buffers; never saved
+    runtime: Optional[Any] = field(default=None, repr=False)
+
+
+def init_loop(
+    params: fenv.EnvParams,
+    cfg: td3.TD3Config,
+    loop_cfg: LoopConfig,
+    n_envs: int,
+    seed: int = 0,
+    stack: Optional[WrapperStack] = None,
+    td3_state: Optional[td3.TD3State] = None,
+) -> LoopState:
+    """A fresh loop on the params' device: `n_envs` envs reset from a
+    generator seeded with `seed`, zero queue and noise, maneuvers drawn
+    from the loop's generator (seeded with seed + 1), an empty buffer of
+    `loop_cfg.replay_size` and `td3.create(cfg, seed)` (or `td3_state`)."""
+    dev = params.device
+    vstate, _ = vector.reset(params, n_envs, seed=seed, stack=stack,
+                             render=False)
+    generator = torch.Generator(device=dev).manual_seed(seed + 1)
+    f32 = torch.float32
+    example = {
+        "x": torch.zeros((cfg.seq_len, FEATURE_VEC_SIZE), dtype=f32),
+        "m": torch.zeros((), dtype=torch.int32),
+        "a": torch.zeros((cfg.action_dim,), dtype=f32),
+        "r": torch.zeros((1,), dtype=f32),
+        "x1": torch.zeros((cfg.seq_len, FEATURE_VEC_SIZE), dtype=f32),
+    }
+    return LoopState(
+        vstate=vstate,
+        queue=torch.zeros((n_envs, cfg.seq_len + 1, FEATURE_VEC_SIZE),
+                          dtype=f32, device=dev),
+        noise=torch.zeros((n_envs, cfg.action_dim), dtype=f32, device=dev),
+        maneuver=torch.randint(3, (n_envs,), generator=generator,
+                               device=dev, dtype=torch.int32),
+        buf=rb.create(loop_cfg.replay_size, example, device=dev),
+        td3_state=(td3.create(cfg, seed, device=dev) if td3_state is None
+                   else td3_state),
+        generator=generator,
+        sigma=torch.full((n_envs,), SIGMA0, dtype=f32, device=dev),
+        sigma_target=torch.tensor(SIGMA0, dtype=f32, device=dev),
+        ep_count=torch.zeros(n_envs, dtype=torch.int32, device=dev),
+    )
+
+
+def step_kinds(state: LoopState, cfg: td3.TD3Config, loop_cfg: LoopConfig,
+               n_steps: int):
+    """The kind of each of the next `n_steps` steps, from the host's
+    counts, and the counts after them: a kind is None (collect only) or
+    the tuple of the step's updates, True for an actor update."""
+    b = state.queue.shape[0]
+    filled, steps = state.filled_host, state.steps_host
+    kinds = []
+    for _ in range(n_steps):
+        filled = min(filled + b, state.buf.size)
+        if loop_cfg.updates_per_step > 0 and filled >= cfg.batch_size:
+            kinds.append(tuple(
+                (steps + i + 1) % cfg.policy_delay == 0
+                for i in range(loop_cfg.updates_per_step)))
+            steps += loop_cfg.updates_per_step
+        else:
+            kinds.append(None)
+    return kinds, filled, steps
+
+
+class _Runtime:
+    """A chunk's output buffers, its step index, the injected draws'
+    buffers and the captured graph of each kind of step."""
+
+    def __init__(self, key, n_steps: int, outs: Dict[str, torch.Tensor],
+                 dev: torch.device):
+        self.key = key
+        self.out = {k: torch.zeros((n_steps, *v.shape), dtype=v.dtype,
+                                   device=dev) for k, v in outs.items()}
+        self.t = torch.zeros(1, dtype=torch.long, device=dev)
+        self.draws: Optional[Dict[str, torch.Tensor]] = None
+        self.graphs: Dict[Any, torch.cuda.CUDAGraph] = {}
+        self.pool = None
+        self.stream = None
+        self.replays = 0
+        self.eager_steps = 0
+
+
+def _step(state: LoopState, params, cfg: td3.TD3Config,
+          loop_cfg: LoopConfig, encoder_apply: Callable, stack, kind,
+          rt: _Runtime) -> None:
+    """One fused step (td3_loop.py:144-278), in place, its outputs written
+    at row rt.t of rt.out; reads row rt.t of rt.draws when injected."""
+    s = state
+    b = s.queue.shape[0]
+    dev = s.queue.device
+    draw = None
+    if rt.draws is not None:
+        draw = {k: v.index_select(0, rt.t)[0] for k, v in rt.draws.items()}
+    net_dtype = s.queue.dtype
+    feat_seq = s.queue[:, :-1]
+    m_onehot = one_hot(s.maneuver, cfg.maneuver_dim, net_dtype)
+    eps = (draw["ou"] if draw is not None else torch.randn(
+        s.noise.shape, generator=s.generator, dtype=s.noise.dtype,
+        device=dev))
+    noise = (s.noise + cfg.noise_theta * (cfg.noise_mean - s.noise)
+             + s.sigma[:, None] * eps)
+    action = td3.select_action(s.td3_state, cfg, feat_seq, m_onehot, noise,
+                               loop_cfg.steering_shift)
+    env_dtype = s.vstate.env.car.position.dtype
+    env_action = {
+        "car_control": torch.stack(
+            [torch.full((b,), loop_cfg.speed, dtype=env_dtype, device=dev),
+             action[:, 0].to(env_dtype)], dim=-1),
+        "maneuver": torch.where(s.maneuver != 2, s.maneuver, 3),
+    }
+    float_obs = loop_cfg.obs_dtype is not None and not (
+        stack is not None and stack.observation_fns)
+    vstate, obs, rew, term, trunc, info = vector.step(
+        params, s.vstate, env_action, stack=stack,
+        max_episode_steps=loop_cfg.max_episode_steps, render=not float_obs,
+        respawn_rows=None if draw is None else draw["respawn"],
+    )
+    if float_obs:
+        # 0/1 masks in the encoder's dtype straight from the kernel, of
+        # the post-reset states vector.step would render
+        obs = fenv.render_observation_batch(params, vstate.env,
+                                            out_dtype=loop_cfg.obs_dtype)
+    f = encoder_apply(obs).to(s.queue.dtype)
+    queue = torch.cat([f[:, None], s.queue[:, :-1]], dim=1)
+    rb.add_batch(s.buf, {
+        "x": queue[:, 1:], "m": s.maneuver, "a": action,
+        "r": rew[:, None].to(torch.float32), "x1": queue[:, :-1],
+    }, s.generator, None if draw is None else draw["evict"])
+
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    losses = {"critic1_loss": zero, "critic2_loss": zero,
+              "actor_loss": zero}
+    if kind is not None:
+        for i, do_actor in enumerate(kind):
+            batch = rb.sample(s.buf, cfg.batch_size, s.generator,
+                              None if draw is None else draw["sample"][i])
+            batch["m"] = one_hot(batch["m"], cfg.maneuver_dim, net_dtype)
+            batch["m1"] = batch["m"]
+            _, losses = td3.train_step(s.td3_state, cfg, batch, do_actor)
+    done = term | trunc
+    noise = torch.where(done[:, None], 0.0, noise)
+    ep_count = s.ep_count + done.to(torch.int32)
+    if loop_cfg.total_episodes is not None:
+        level = SIGMA0 * torch.clamp(
+            1.0 - ep_count.to(torch.float32) / loop_cfg.total_episodes,
+            min=0.0)
+    else:
+        level = s.sigma_target.expand(ep_count.shape)
+    sigma = torch.where(done, level, s.sigma)
+    fresh = (draw["maneuver"] if draw is not None else torch.randint(
+        3, (b,), generator=s.generator, device=dev, dtype=torch.int32))
+    maneuver = torch.where(done, fresh.to(torch.int32), s.maneuver)
+
+    out = {"reward": rew, "done": done, "sigma": sigma, "cte": info["cte"],
+           # batch-mean per-laneline distances (vis_utils.py's logging)
+           "laneline_distances": info["laneline_distances"].mean(dim=0),
+           **{k: v.to(torch.float32) for k, v in losses.items()}}
+    with torch.no_grad():
+        graphs.copy_into(s.vstate, vstate)
+        s.queue.copy_(queue)
+        s.noise.copy_(noise)
+        s.maneuver.copy_(maneuver)
+        s.sigma.copy_(sigma)
+        s.ep_count.copy_(ep_count)
+        for k, v in out.items():
+            rt.out[k].index_copy_(0, rt.t, v[None].to(rt.out[k].dtype))
+        rt.t.add_(1)
+
+
+def _outputs(state: LoopState, params) -> Dict[str, torch.Tensor]:
+    """One step's outputs, zeros of their shapes and dtypes."""
+    b, dev = state.queue.shape[0], state.queue.device
+    dtype = state.vstate.env.car.position.dtype
+    n_lines = fenv._info(params, state.vstate.env)["laneline_distances"]
+    return {
+        "reward": torch.zeros(b, dtype=dtype, device=dev),
+        "done": torch.zeros(b, dtype=torch.bool, device=dev),
+        "sigma": torch.zeros(b, dtype=torch.float32, device=dev),
+        "cte": torch.zeros(b, dtype=dtype, device=dev),
+        "laneline_distances": torch.zeros(n_lines.shape[1:], dtype=dtype,
+                                          device=dev),
+        **{k: torch.zeros((), dtype=torch.float32, device=dev)
+           for k in ("critic1_loss", "critic2_loss", "actor_loss")},
+    }
+
+
+def chunk(
+    state: LoopState,
+    params: fenv.EnvParams,
+    cfg: td3.TD3Config,
+    loop_cfg: LoopConfig,
+    encoder_apply: Callable,
+    n_steps: int,
+    stack: Optional[WrapperStack] = None,
+    draws: Optional[Dict[str, torch.Tensor]] = None,
+    graph: bool = True,
+) -> Tuple[LoopState, Dict[str, torch.Tensor]]:
+    """Run `n_steps` fused rollout + train steps, updating `state` in
+    place. `encoder_apply(obs) -> (B, F)` features (typically
+    `models.tinycar_net.encoder_apply_fn` of a frozen encoder,
+    train_td3.py:66-67,152-155). Returns (state, outputs), each output
+    (T, ...): reward, done, sigma, cte (B per step), laneline_distances
+    (the batch mean), critic1_loss, critic2_loss, actor_loss (0 where
+    skipped).
+
+    On a CUDA state with `graph`, steps replay captured graphs (module
+    docstring); otherwise each step runs eagerly. `draws` (tests only)
+    injects a chunk's random numbers, each (T, ...): "ou" (B, A) normals,
+    "evict" (B,) slots, "sample" (U, batch) indices, "maneuver" (B,) and
+    "respawn" (B,) spawn rows."""
+    dev = state.queue.device
+    key = (id(params), id(encoder_apply), id(stack), cfg, loop_cfg, n_steps,
+           draws is not None)
+    rt = state.runtime
+    if rt is None or rt.key != key:
+        rt = state.runtime = _Runtime(key, n_steps,
+                                      _outputs(state, params), dev)
+    if draws is not None:
+        if rt.draws is None:
+            rt.draws = {k: v.to(dev).clone() for k, v in draws.items()}
+        else:
+            for k, v in draws.items():
+                rt.draws[k].copy_(v)
+    rt.t.zero_()
+    kinds, filled, steps = step_kinds(state, cfg, loop_cfg, n_steps)
+    use_graph = graph and dev.type == "cuda"
+    kernel = fenv.render_kernel(params)
+    for kind in kinds:
+        def run(kind=kind):
+            _step(state, params, cfg, loop_cfg, encoder_apply, stack, kind,
+                  rt)
+
+        g = rt.graphs.get(kind) if use_graph else None
+        if g is not None:
+            g.replay()
+            rt.replays += 1
+            continue
+        rt.eager_steps += 1
+        if not use_graph:
+            run()
+            continue
+        # the step's first run and its capture on one stream: autograd
+        # records the stream its gradients' leaves were first used on
+        if rt.stream is None:
+            rt.stream = torch.cuda.Stream(dev)
+        graphs.warm_up(run, stream=rt.stream)
+        g = graphs.capture(
+            run, kernel,
+            generators=(state.generator, state.vstate.generator),
+            pool=rt.pool, stream=rt.stream)
+        rt.pool = g.pool()
+        rt.graphs[kind] = g
+        # the capture recorded the step index's increment, not run it
+    state.filled_host, state.steps_host = filled, steps
+    return state, {k: v.clone() for k, v in rt.out.items()}
+
+
+def set_sigma_target(state: LoopState, level: float) -> None:
+    """The host-driven OU sigma level that envs adopt at their next
+    episode boundary (examples/train_td3.py), written in place."""
+    state.sigma_target.fill_(level)

@@ -14,17 +14,26 @@ Respawn rows are drawn from a torch.Generator kept in the VecState (the
 JAX package splits per-env PRNG keys; the two streams differ). Pass
 `respawn_rows` to `step` to inject the rows instead, as the parity tests
 do with the JAX package's draws.
+
+`rollout` runs n steps of (policy -> step) (tinycarlo_tpu/vector.py:
+158-209, a jitted scan there). On the CPU it is a loop; on the card its
+first steps run eagerly and the rest replay one captured CUDA graph of a
+step (utils/graphs.py), so the host enqueues one replay a step.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, fields, replace
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
 from tinycarlo_torch import car as car_mod
 from tinycarlo_torch import env as fenv
+from tinycarlo_torch.utils import graphs
 from tinycarlo_torch.wrapper.functional import WrapperStack
+
+# eager steps of a rollout on the card before its step is captured
+ROLLOUT_WARMUP = 3
 
 
 @dataclass
@@ -140,3 +149,102 @@ def step(
         if stack.observation_fns:  # tinycarlo_tpu/vector.py:147-150
             obs = stack.apply_observation(state.generator, obs)
     return state, obs, reward, terminated, truncated, info
+
+
+def rollout(
+    params: fenv.EnvParams,
+    state: VecState,
+    policy_fn: Callable,
+    n_steps: int,
+    stack: Optional[WrapperStack] = None,
+    max_episode_steps: Optional[int] = None,
+    render: bool = True,
+    generator: Optional[torch.Generator] = None,
+    info_keys: Sequence[str] = (),
+    keep_obs: bool = True,
+    graph: bool = True,
+    stats: Optional[Dict[str, int]] = None,
+):
+    """`n_steps` of (policy -> step). Returns (final state, trajectory):
+    reward, terminated, truncated, cte and heading_error (T, B) stacked
+    along a leading time axis, "obs" (T, B, ...) when rendering (unless
+    `keep_obs` is off: at 4096 rgb envs a 100-step trajectory's frames
+    would take 25 GB), and the info entries named in `info_keys` (e.g.
+    "position").
+
+    `policy_fn(obs or None, env_state, generator) -> action dict`; it
+    receives the EnvState, so observation-free controllers (Stanley) skip
+    the render (render=False). `generator` drives the policy's draws
+    (default: the state's own, which also draws the respawns). A policy
+    that keeps state between steps keeps it in tensors it updates in place.
+
+    On a CUDA state with `graph` (the default) and more than
+    ROLLOUT_WARMUP steps, those first steps run eagerly on a side stream,
+    then one step is captured as a CUDA graph over the state's tensors
+    (the render kernel recorded once when rendering; the generators
+    registered) and replayed for the rest, its outputs written into (T,
+    ...) buffers at a device-side step index. The returned state's
+    tensors are the graph's static ones. `stats`, if given, gains the
+    counts "replays" and "captures" (a replayed render passes no kernel
+    wrapper, so launch counts read eager renders plus captures).
+    """
+    generator = state.generator if generator is None else generator
+
+    def body(vs):
+        obs = (fenv.render_observation_batch(params, vs.env)
+               if render else None)
+        action = policy_fn(obs, vs.env, generator)
+        vs, _, reward, term, trunc, info = step(
+            params, vs, action, stack=stack,
+            max_episode_steps=max_episode_steps, render=False,
+        )
+        out = {"reward": reward, "terminated": term, "truncated": trunc,
+               "cte": info["cte"], "heading_error": info["heading_error"]}
+        out.update({k: info[k] for k in info_keys})
+        if obs is not None and keep_obs:
+            out["obs"] = obs
+        return vs, out
+
+    use_graph = (graph and state.episode_step.device.type == "cuda"
+                 and n_steps > ROLLOUT_WARMUP)
+    outs = []
+
+    def eager():
+        nonlocal state
+        state, out = body(state)
+        outs.append(out)
+
+    if not use_graph:
+        for _ in range(n_steps):
+            eager()
+        return state, _stack(outs)
+
+    graphs.warm_up(eager, ROLLOUT_WARMUP)
+    graphs.check_distinct(graphs.tensors(state), "rollout")
+    n_rest = n_steps - ROLLOUT_WARMUP
+    bufs = {k: torch.empty((n_rest, *v.shape), dtype=v.dtype,
+                           device=v.device) for k, v in outs[-1].items()}
+    t = torch.zeros(1, dtype=torch.long, device=state.episode_step.device)
+
+    def captured():
+        new, out = body(state)
+        graphs.copy_into(state, new)
+        for k, v in out.items():
+            bufs[k].index_copy_(0, t, v[None])
+        t.add_(1)
+
+    g = graphs.capture(captured, fenv.render_kernel(params) if render
+                       else None, generators=(state.generator, generator))
+    for _ in range(n_rest):
+        g.replay()
+    if stats is not None:
+        stats["replays"] = stats.get("replays", 0) + n_rest
+        stats["captures"] = stats.get("captures", 0) + 1
+    traj = _stack(outs)
+    return state, {k: torch.cat([traj[k], bufs[k]]) for k in bufs}
+
+
+def _stack(outs):
+    if not outs:
+        return {}
+    return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
