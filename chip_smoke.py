@@ -160,8 +160,35 @@ any failed check:
    d. 8 envs x 12 steps of the chunk on the card against the CPU port
       with the same injected draws: positions within 1e-4 m, losses
       within a relative 1e-3.
-15. results: the `kernels` JSON line (K1-K10), the card line and, last,
-   the `ok` JSON line.
+15. imitation learning (train/il.py at the IL example's full width:
+   examples/config_simple_layout.yaml, rgb 128x160, 16 envs, 128-step
+   chunks, skip_steps 2, batch 32, the combo at 3x128x160, camera DR on):
+   a. three collection chunks (maneuvers 0, 1, 2) through the collector's
+      replayed graph and one eagerly, each with its samples/s, and one
+      classes chunk (bench.py's config) through the graph; rank- and
+      masks-kernel launches equal to the eager renders plus the captures
+      (the replays counted apart); a replayed unit's device time and idle
+      share from a trace; the rank kernel bit-equal to its plain version
+      on the chunk's own bundles;
+   b. train_chunk of 500 steps, twice, on the collected data with
+      maneuver-balanced batches: steps/s and each chunk's mean loss,
+      finite and falling; the device time of a replayed step and its top
+      kernels from a trace;
+   c. with deterministic algorithms on, 4 replayed train steps equal bit
+      for bit to 4 eager steps from the same state and indices,
+      parameters, BatchNorm buffers and Adam state included;
+   d. one DAgger chunk at 16 envs: samples/s, rank launches, labels
+      finite and not constant;
+   e. save_variables_npz -> load_variables_npz -> a fresh combo whose eval
+      outputs on a batch are equal bit for bit;
+   f. 4 envs x 16 collection steps on the card against the CPU port with
+      the same injected draws: positions within 1e-4 m, labels within
+      1e-4, under 0.5% of pixels differing;
+   g. the trained combo through `evaluate`, maneuver 0, 200 steps: a
+      finite cte_avg.
+16. results: the `kernels` JSON line (K1-K10; the masks and rank kernels'
+   entries also give their launches on the IL phase's paths,
+   `launches_il`), the card line and, last, the `ok` JSON line.
 
 Every phase prints its seconds.
 
@@ -170,6 +197,7 @@ clocks around work that ends in torch.cuda.synchronize()).
 """
 import dataclasses
 import json
+import math
 import multiprocessing
 import os
 import statistics
@@ -216,9 +244,8 @@ CONFIG = {
 }
 N_ENVS = 4096
 CHUNK = 100  # steps per timed repeat
-REPEATS = 5
-# the repeats of the paths other than exact classes, cut so that the
-# whole run fits its time
+# the repeats of each eager path, cut (exact classes from 5 in PR 12) so
+# that the whole run fits its time
 FAST_REPEATS = 3
 WARMUP = 10
 # replays of the bench's graph in its profiler trace
@@ -640,7 +667,7 @@ def main():
 
     # ---- 9. exact classes ----------------------------------------------------
     exact_entry = classes_path(card, rk, fenv, vector, stanley_steering,
-                               params_exact, exact_err, REPEATS)
+                               params_exact, exact_err, FAST_REPEATS)
     check_exact_oracle(fenv, rk, params_exact, exact_entry.pop("run"))
     clock.done("exact classes")
 
@@ -668,7 +695,14 @@ def main():
     td3_phase(card, rk)
     clock.done("td3")
 
-    # ---- 15. results --------------------------------------------------------
+    # ---- 15. imitation learning -------------------------------------------------
+    il_launches = il_phase(card, rk, ras)
+    for entry in kernels:
+        if entry["name"] in il_launches:
+            entry["launches_il"] = il_launches[entry["name"]]
+    clock.done("imitation learning")
+
+    # ---- 16. results --------------------------------------------------------
     print(f"chip_smoke: {time.perf_counter() - start:.1f} s after the "
           f"device check")
     print(json.dumps({"kernels": kernels}))
@@ -2761,6 +2795,318 @@ def td3_phase(card, rk):
     clock.done("  td3 graphs, checkpoint, evaluate")
     td3_card_vs_cpu(params)
     clock.done("  td3 card vs CPU")
+
+
+# the IL example's collection and training (examples/train_stanley_il.py:
+# 16 envs, 128-step chunks; batch 32 and 500-step train chunks)
+IL_ENVS, IL_CHUNK_STEPS, IL_TRAIN_STEPS = 16, 128, 500
+# card against CPU port, 4 envs x 16 steps from injected draws: positions
+# and labels within 1e-4 (the two devices' float32 libm differ in the last
+# bits), frames under 0.5% of the pixels apart (stroke-boundary pixels)
+IL_CPU_ENVS, IL_CPU_STEPS, IL_ATOL, IL_PIXELS = 4, 16, 1e-4, 5e-3
+
+
+def il_collect(card, rk, ras, params, cfg):
+    """(a): three graph chunks, one eager chunk and a classes chunk; the
+    launch counts; the rank kernel on the chunk's bundles. Returns the
+    collected (X, M, Y) on the card and the launches by kernel."""
+    import torch
+
+    from tinycarlo_torch import env as fenv
+    from tinycarlo_torch.train import il
+
+    for k in (rk.masks_kernel, rk.rank_kernel, rk.exact_kernel):
+        k.launches = 0
+    g = torch.Generator(device="cuda").manual_seed(0)
+    coll = il.Collector(params, cfg, IL_ENVS, IL_CHUNK_STEPS)
+    xs, ms, ys = [], [], []
+    for m in (0, 1, 2):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        traj = coll.chunk(m, g)
+        keep = traj["keep"]
+        x = traj["obs"][keep].flatten(0, 1)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - start
+        graph_secs = secs
+        xs.append(x)
+        ys.append(traj["steering"][keep].reshape(-1, 1).float())
+        ms.append(torch.full((x.shape[0],), m, device="cuda"))
+        print(f"il collection, maneuver {m} (graph{', capture' if m == 0 else ''}"
+              f"): {x.shape[0]} samples in {secs * 1e3:.1f} ms, "
+              f"{x.shape[0] / secs:.1f} samples/s on {card}")
+    eager = il.Collector(params, cfg, IL_ENVS, IL_CHUNK_STEPS, graph=False)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    traj = eager.chunk(0, g)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - start
+    n = int(traj["keep"].sum()) * IL_ENVS
+    print(f"il collection, eager: {n} samples in {secs * 1e3:.1f} ms, "
+          f"{n / secs:.1f} samples/s on {card}")
+    st, se = coll.stats, eager.stats
+    launches = rk.rank_kernel.launches
+    # a trace of replayed units (two collection steps, one render each)
+    unit = next(iter(coll.graphs.values()))
+
+    def replay():
+        coll.t.zero_()
+        unit.replay()
+
+    busy, top, _, wall = device_profile(replay, calls=5)
+    if busy is None:
+        print("il collection unit: device busy not measured (the trace "
+              "holds no device time)")
+    else:
+        unit_ms = 1e3 * graph_secs * cfg.skip_steps / IL_CHUNK_STEPS
+        print(f"il collection unit (replayed, {cfg.skip_steps} steps): "
+              f"{busy:.4f} ms device busy, {wall:.4f} ms wall a traced "
+              f"unit; {unit_ms:.4f} ms a unit in the last chunk, idle share "
+              f"{1 - busy / unit_ms:.3f}")
+        for key, key_ms, count in top:
+            print(f"  {key_ms:.4f} ms/unit x{count}: {key}")
+    check(launches == st["renders"] + st["captures"] + se["renders"],
+          f"il collection: {launches} rank-kernel launches for "
+          f"{st['renders']} + {se['renders']} eager renders and "
+          f"{st['captures']} captures")
+    check(st["replays"] == 3 * IL_CHUNK_STEPS // cfg.skip_steps - 1,
+          f"il collection: {st['replays']} replays")
+    check(rk.masks_kernel.launches == 0 and rk.exact_kernel.launches == 0,
+          "il collection (rgb) launched the masks or exact kernel")
+    # the rank kernel on the last graph chunk's final states, through the
+    # collector's randomized camera
+    p = coll.params
+    res = tuple(p.cfg.camera.resolution)
+    err = rank_vs_plain(rk, ras, bench_bundle(fenv, rk, p, coll.vstate.env),
+                        p.map_data.n_layers, res, p.cfg.camera.line_thickness)
+    # a classes chunk (bench.py's config) through the graph: the masks
+    # kernel (the rank check above launched it once, not counted)
+    classes = il.Collector(fenv.make_env_params(CONFIG), cfg, IL_ENVS,
+                           IL_CHUNK_STEPS)
+    rk.masks_kernel.launches = 0
+    traj = classes.chunk(1, g)
+    sc = classes.stats
+    check(rk.masks_kernel.launches == sc["renders"] + sc["captures"]
+          and bool(traj["obs"].any()),
+          f"il classes chunk: {rk.masks_kernel.launches} masks-kernel "
+          f"launches for {sc}")
+    print(f"il collection: rank kernel {launches} launches ({st['renders']} "
+          f"+ {se['renders']} eager renders, {st['captures']} capture; "
+          f"{st['replays']} replays apart), bit-equal to its plain version "
+          f"on the chunk's bundles (max |error| {err}); classes chunk: masks "
+          f"kernel {rk.masks_kernel.launches} launches, {sc['replays']} "
+          "replays")
+    data = (torch.cat(xs), torch.cat(ms), torch.cat(ys))
+    return data, {"rank": launches, "masks": rk.masks_kernel.launches}
+
+
+def il_data(X, M, Y):
+    """The device dataset with the example's maneuver-balanced pools."""
+    import torch
+
+    pools, pool_n = [], []
+    counts = [int((M == m).sum()) for m in range(3)]
+    for m in range(3):
+        ids = torch.nonzero(M == m)[:, 0]
+        pool_n.append(len(ids))
+        pools.append(ids.repeat(max(counts) // max(len(ids), 1) + 1)[
+            :max(counts)])
+    return {"x": X, "m": M.long(), "y": Y,
+            "pools": torch.stack(pools).to(torch.int32),
+            "pool_n": torch.tensor(pool_n, dtype=torch.int32, device="cuda")}
+
+
+def il_train(card, state, cfg, data):
+    """(b): two 500-step chunks; their rates and mean losses; a trace of
+    replayed steps."""
+    import torch
+
+    from tinycarlo_torch.train import il
+
+    means = []
+    for i in range(2):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        state, losses = il.train_chunk(state, cfg, data, IL_TRAIN_STEPS)
+        mean = losses.mean().item()
+        secs = time.perf_counter() - start
+        means.append(mean)
+        print(f"il train chunk {i + 1} ({'capture, ' if i == 0 else ''}"
+              f"{IL_TRAIN_STEPS} steps, batch {cfg.batch_size}): "
+              f"{IL_TRAIN_STEPS / secs:.1f} steps/s, mean loss {mean:.6f} "
+              f"on {card}")
+    check(all(math.isfinite(m) for m in means) and means[1] < means[0],
+          f"il train: mean losses {means} not finite and falling")
+    rt = state.runtime
+
+    def replay():
+        rt.t.zero_()
+        rt.graph.replay()
+
+    busy, top, _, wall = device_profile(replay, calls=5)
+    if busy is None:
+        print("il train step: device busy not measured (the trace holds "
+              "no device time)")
+    else:
+        print(f"il train step (replayed): {busy:.4f} ms device busy, "
+              f"{wall:.4f} ms wall a traced step")
+        for key, ms, count in top:
+            print(f"  {ms:.4f} ms/step x{count}: {key}")
+    return state
+
+
+def il_replays(params, cfg, data):
+    """(c): 4 replayed train steps against 4 eager steps, deterministic
+    algorithms on."""
+    import numpy as np
+    import torch
+
+    from tinycarlo_torch import env as fenv
+    from tinycarlo_torch.train import il
+    from tinycarlo_torch.utils import graphs
+
+    rng = np.random.default_rng(3)
+    n = data["x"].shape[0]
+    draws = [torch.tensor(rng.integers(0, n, (4, cfg.batch_size)))
+             for _ in range(2)]
+    shape = fenv.observation_shape(params)
+    graphs.deterministic(True)
+    try:
+        a = il.create(shape, cfg, seed=5)
+        b = il.create(shape, cfg, seed=5)
+        for d in draws:  # the first chunk captures, the second replays
+            a, la = il.train_chunk(a, cfg, data, 4, draws=d)
+            b, lb = il.train_chunk(b, cfg, data, 4, draws=d, graph=False)
+            same = torch.equal(la, lb) and states_equal(
+                (a.model, a.opt), (b.model, b.opt))
+            check(same, "il: the replayed train steps differ from the "
+                        "eager steps")
+    finally:
+        graphs.deterministic(False)
+    check(a.runtime.replays == 7 and a.runtime.eager_steps == 1,
+          f"il: {a.runtime.replays} replays, {a.runtime.eager_steps} eager")
+    print("il train graph: 4 replayed steps (after a capturing chunk) equal "
+          "bit for bit to 4 eager steps, parameters, BatchNorm buffers and "
+          "Adam state included")
+
+
+def il_dagger(card, rk, params, cfg, model):
+    """(d): one DAgger chunk through the graph."""
+    import torch
+
+    from tinycarlo_torch.train import il
+
+    rk.rank_kernel.launches = 0
+    coll = il.Collector(params, cfg, IL_ENVS, IL_CHUNK_STEPS, model=model)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    traj = coll.chunk(2, torch.Generator(device="cuda").manual_seed(3))
+    y = traj["steering"][traj["keep"]]
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - start
+    st = coll.stats
+    check(rk.rank_kernel.launches == st["renders"] + st["captures"],
+          f"il dagger: {rk.rank_kernel.launches} launches for {st}")
+    check(bool(torch.isfinite(y).all()) and y.std().item() > 0,
+          "il dagger: labels not finite or constant")
+    print(f"il dagger chunk (capture): {y.numel()} samples in "
+          f"{secs * 1e3:.1f} ms, {y.numel() / secs:.1f} samples/s on {card};"
+          f" rank kernel {rk.rank_kernel.launches} launches, "
+          f"{st['replays']} replays")
+    return rk.rank_kernel.launches
+
+
+def il_checkpoint(state, data):
+    """(e): the npz round trip into a fresh combo."""
+    import tempfile
+
+    import torch
+
+    from tinycarlo_torch.convert import combo_state_dict_from_flax
+    from tinycarlo_torch.models.tinycar_net import TinycarCombo, one_hot, pre_obs
+    from tinycarlo_torch.train import il
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "combo.npz")
+        il.save_variables_npz(path, state)
+        sd = combo_state_dict_from_flax(il.load_variables_npz(path))
+    fresh = TinycarCombo(flat_features=sd["encoder.fc1.weight"].shape[1])
+    fresh.load_state_dict(sd)
+    fresh = fresh.cuda().eval()
+    x = pre_obs(data["x"][:64])
+    m = one_hot(data["m"][:64], 3)
+    with torch.no_grad():
+        same = torch.equal(fresh(x, m), state.model(x, m))
+    check(same, "il: the combo read back from its npz differs")
+    print("il checkpoint: save_variables_npz -> load_variables_npz -> a "
+          "fresh combo, eval outputs equal bit for bit")
+
+
+def il_card_vs_cpu(params_gpu, cfg):
+    """(f): 4 envs x 16 collection steps on the card (through the graph)
+    and on the CPU port with the same injected draws."""
+    import numpy as np
+    import torch
+
+    from tinycarlo_torch import env as fenv
+    from tinycarlo_torch.train import il
+
+    params_cpu = fenv.make_env_params(SERVE_CONFIG, device="cpu")
+    n, steps = IL_CPU_ENVS, IL_CPU_STEPS
+    rng = np.random.default_rng(7)
+    count = params_cpu.map_data.spawns.count
+    draws = {"pitch": 14, "fov": 111,
+             "reset": torch.tensor(rng.integers(0, count, n)),
+             "ou": torch.tensor(rng.standard_normal((steps, n, 1)),
+                                dtype=torch.float32),
+             "respawn": torch.tensor(rng.integers(0, count, (steps, n)))}
+    tight = dataclasses.replace(cfg, collect_max_cte=0.02)
+    out = {}
+    for name, p in (("cpu", params_cpu), ("gpu", params_gpu)):
+        coll = il.Collector(p, tight, n, steps)
+        out[name] = {k: v.cpu() for k, v in coll.chunk(
+            1, None, draws=draws, trace=True).items()}
+    c, g = out["cpu"], out["gpu"]
+    pos = (g["position"] - c["position"]).abs().max().item()
+    lab = (g["steering"] - c["steering"]).abs().max().item()
+    pix = (g["obs"] != c["obs"]).float().mean().item()
+    check(torch.equal(g["done"], c["done"]) and pos <= IL_ATOL
+          and lab <= IL_ATOL and pix < IL_PIXELS,
+          f"il card vs CPU: positions {pos}, labels {lab}, pixels {pix}, "
+          f"resets {int(g['done'].sum())} / {int(c['done'].sum())}")
+    print(f"il card vs CPU: {n} envs x {steps} steps, positions within "
+          f"{pos:.3g} m, labels within {lab:.3g}, {pix:.2e} of pixels "
+          f"apart, {int(c['done'].sum())} resets on both")
+
+
+def il_phase(card, rk, ras):
+    """Phase 15: imitation learning at the IL example's full width. Prints
+    the seconds of each part; returns the IL paths' launches by kernel."""
+    from tinycarlo_torch import env as fenv
+    from tinycarlo_torch.train import il
+    from tinycarlo_torch.train.evaluate import combo_policy, evaluate
+
+    clock = PhaseClock()
+    params = fenv.make_env_params(SERVE_CONFIG)
+    cfg = il.ILConfig()
+    (X, M, Y), launches = il_collect(card, rk, ras, params, cfg)
+    clock.done("  il collection")
+    data = il_data(X, M, Y)
+    state = il_train(card, il.create(fenv.observation_shape(params), cfg,
+                                     seed=1), cfg, data)
+    clock.done("  il training")
+    il_replays(params, cfg, data)
+    launches["rank"] += il_dagger(card, rk, params, cfg, state.model)
+    il_checkpoint(state, data)
+    clock.done("  il graphs, dagger, checkpoint")
+    il_card_vs_cpu(params, cfg)
+    r = evaluate(combo_policy(state.model), params, 0, None, steps=200)
+    check(math.isfinite(r["cte_avg"]), f"il evaluate: cte_avg {r['cte_avg']}")
+    print(f"il evaluate (maneuver 0, 5 episodes x 200 steps, the trained "
+          f"combo): cte_avg {r['cte_avg']:.4f} m, {r['terminations']} "
+          f"terminations")
+    clock.done("  il card vs CPU, evaluate")
+    return launches
 
 
 if __name__ == "__main__":

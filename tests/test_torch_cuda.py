@@ -885,3 +885,167 @@ def test_rollout_graph_matches_eager():
     assert all(torch.equal(ta[k], tb[k]) for k in ta)
     assert torch.equal(fa.env.car.position, fb.env.car.position)
 
+
+
+# ---- imitation learning (train/il.py) ----------------------------------------
+
+def _il_params(classes=False):
+    from tinycarlo_torch import env as fenv
+    from tinycarlo_torch.benchmarks import bench as pbench
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    return fenv.make_env_params(
+        pbench.CONFIG if classes
+        else os.path.join(repo, "examples", "config_simple_layout.yaml"))
+
+
+def _il_data(n, shape, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    m = torch.randint(3, (n,), generator=g, device="cuda")
+    pools = torch.stack([torch.nonzero(m == i)[:, 0][:4] for i in range(3)])
+    return {"x": torch.randint(256, (n, *shape), generator=g, device="cuda",
+                               dtype=torch.uint8),
+            "m": m,
+            "y": torch.rand((n, 1), generator=g, device="cuda") * 2 - 1,
+            "pools": pools.to(torch.int32),
+            "pool_n": torch.full((3,), 4, dtype=torch.int32, device="cuda")}
+
+
+def test_il_train_graph_matches_eager():
+    """train_chunk through its replayed graph (1 eager step, then replays)
+    equals the eager steps bit for bit -- losses, parameters, BatchNorm
+    running statistics and Adam state -- from the same seeds, with the
+    generator's balanced draws, deterministic algorithms on."""
+    _require_cuda()
+    from tinycarlo_torch.train import il
+    from tinycarlo_torch.utils import graphs
+
+    cfg = il.ILConfig(batch_size=16, learning_rate=1e-3)
+    shape = (128, 160, 3)
+    data = _il_data(64, shape, 1)
+    graphs.deterministic(True)
+    try:
+        runs = []
+        for graph in (True, False):
+            s = il.create(shape, cfg, seed=2)
+            g = torch.Generator(device="cuda").manual_seed(3)
+            s, l1 = il.train_chunk(s, cfg, data, 5, generator=g, graph=graph)
+            s, l2 = il.train_chunk(s, cfg, data, 5, generator=g, graph=graph)
+            runs.append((s, torch.cat([l1, l2])))
+    finally:
+        graphs.deterministic(False)
+    (a, la), (b, lb) = runs
+    assert a.runtime.replays == 9 and a.runtime.eager_steps == 1
+    assert torch.equal(la, lb) and bool(torch.isfinite(la).all())
+    assert _equal_states((a.model, a.opt), (b.model, b.opt))
+    assert not torch.equal(a.model.encoder.convs[0].bn1.running_var,
+                           torch.ones_like(a.model.encoder.convs[0].bn1.
+                                           running_var))
+
+
+def test_il_collect_graph_matches_eager():
+    """Two expert chunks through the collector's replayed graph (the first
+    captures) equal two eager chunks from the same generator seed bit for
+    bit, auto-resets and camera draws included; the rank kernel launched
+    once per eager render and capture (the replays pass no wrapper)."""
+    _require_cuda()
+    from tinycarlo_torch.ops import rasterize_kernels as rk
+    from tinycarlo_torch.train import il
+
+    params = _il_params()
+    cfg = il.ILConfig(collect_max_cte=0.02)
+    outs = []
+    for graph in (True, False):
+        coll = il.Collector(params, cfg, 8, 32, graph=graph)
+        g = torch.Generator(device="cuda").manual_seed(4)
+        before = rk.rank_kernel.launches
+        trajs = [coll.chunk(m, g, trace=True) for m in (0, 2)]
+        outs.append((coll, trajs, rk.rank_kernel.launches - before))
+    (ca, ta, na), (cb, tb, nb) = outs
+    assert ca.stats == {"renders": 1, "captures": 1, "replays": 31}
+    assert cb.stats == {"renders": 32, "captures": 0, "replays": 0}
+    assert na == ca.stats["renders"] + ca.stats["captures"] and nb == 32
+    for x, y in zip(ta, tb):
+        assert set(x) == set(y)
+        assert all(torch.equal(x[k], y[k]) for k in x)
+    assert bool(ta[0]["obs"].any()) and bool(
+        torch.cat([t["done"] for t in ta]).any())
+
+
+def test_il_dagger_graph_matches_eager():
+    """A DAgger chunk (a render and the combo every step) through its
+    graph equals the eager chunk bit for bit; launches = renders +
+    captures."""
+    _require_cuda()
+    from tinycarlo_torch import env as fenv
+    from tinycarlo_torch.ops import rasterize_kernels as rk
+    from tinycarlo_torch.train import il
+    from tinycarlo_torch.utils import graphs
+
+    params = _il_params()
+    cfg = il.ILConfig()
+    model = il.create(fenv.observation_shape(params), cfg, seed=6).model
+    outs = []
+    graphs.deterministic(True)
+    try:
+        for graph in (True, False):
+            before = rk.rank_kernel.launches
+            coll = il.Collector(params, cfg, 8, 12, model=model, graph=graph)
+            traj = coll.chunk(1, torch.Generator(device="cuda").manual_seed(5))
+            outs.append((coll.stats, traj, rk.rank_kernel.launches - before))
+    finally:
+        graphs.deterministic(False)
+    (sa, ta, na), (sb, tb, nb) = outs
+    assert sa == {"renders": 1, "captures": 1, "replays": 11}
+    assert na == 2 and nb == 12
+    assert all(torch.equal(ta[k], tb[k]) for k in ta)
+
+
+def test_il_classes_collection_launches_masks_kernel():
+    """On a classes config the collector's graph records the masks
+    kernel once; launches = eager renders + captures."""
+    _require_cuda()
+    from tinycarlo_torch.ops import rasterize_kernels as rk
+    from tinycarlo_torch.train import il
+
+    before = rk.masks_kernel.launches
+    coll = il.Collector(_il_params(classes=True), il.ILConfig(), 8, 16)
+    traj = coll.chunk(0, torch.Generator(device="cuda").manual_seed(1))
+    assert rk.masks_kernel.launches - before == 2
+    assert coll.stats == {"renders": 1, "captures": 1, "replays": 7}
+    assert bool(traj["obs"][traj["keep"]].any())
+
+
+def test_bn_train_update_is_capturable():
+    """ConvBlock's train-mode forward (flax's running-statistics update,
+    in place) captured as a CUDA graph: 3 replays move the running
+    statistics as 3 eager calls do, bit for bit."""
+    _require_cuda()
+    from tinycarlo_torch.models.tinycar_net import ConvBlock
+
+    torch.manual_seed(0)
+    a = ConvBlock(3, 8).cuda().train()
+    b = ConvBlock(3, 8).cuda().train()
+    b.load_state_dict(a.state_dict())
+    x = torch.randn(16, 3, 32, 40, device="cuda")
+    out = torch.empty(16, 8, 16, 20, device="cuda")
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream), torch.no_grad():
+        out.copy_(a(x))  # warm-up: one real update
+    torch.cuda.current_stream().wait_stream(stream)
+    with torch.no_grad():
+        b(x)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g), torch.no_grad():
+        out.copy_(a(x))
+    for _ in range(3):
+        g.replay()
+        with torch.no_grad():
+            want = b(x)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+    assert torch.equal(a.bn1.running_mean, b.bn1.running_mean)
+    assert torch.equal(a.bn1.running_var, b.bn1.running_var)
+    assert not torch.equal(a.bn1.running_var, torch.ones_like(
+        a.bn1.running_var))

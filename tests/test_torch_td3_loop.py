@@ -264,3 +264,22 @@ def test_td3_bench_runs_on_the_cpu():
     assert r["busy_ms_per_step"] is None and r["peak_memory_gb"] is None
     assert r["losses_finite"] and r["actor_moved"]
     assert r["eager_steps"] == r["renders"] == 12
+
+
+def test_chunk_keeps_the_car_fields_apart(params):
+    """A fresh loop's car state holds a tensor per field: the chunk writes
+    each field back in place, and a reset whose steering angle, radius and
+    velocity shared one zeros tensor left all three holding the velocity
+    after every step."""
+    from tinycarlo_torch.utils import graphs
+
+    cfg = ptd3.TD3Config(seq_len=3, batch_size=8)
+    loop_cfg = ploop.LoopConfig(replay_size=64, max_episode_steps=50,
+                                updates_per_step=0, steering_shift=0.5)
+    state = ploop.init_loop(params, cfg, loop_cfg, B)
+    ts = graphs.tensors(state.vstate)
+    assert len({t.data_ptr() for t in ts}) == len(ts)
+    state, _ = ploop.chunk(state, params, cfg, loop_cfg, p_encoder, 2)
+    car = state.vstate.env.car
+    assert bool((car.steering_angle != 0).any())
+    assert not torch.equal(car.steering_angle, car.velocity)

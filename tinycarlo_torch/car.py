@@ -56,15 +56,15 @@ def car_reset(
     position = sp.position[spawn_row]
     rotation = sp.rotation[spawn_row]
     edge = sp.edge[spawn_row]
-    zero = torch.zeros_like(rotation)
     ones = torch.ones(rotation.shape, dtype=torch.int32, device=rotation.device)
+    # a tensor per field: a captured step writes the fields back one by one
     return CarState(
         position=position,
         position_front=_front(position, rotation, cfg.wheelbase),
         rotation=rotation,
-        steering_angle=zero,
-        radius=zero,
-        velocity=zero,
+        steering_angle=torch.zeros_like(rotation),
+        radius=torch.zeros_like(rotation),
+        velocity=torch.zeros_like(rotation),
         local_path=edge[:, None, :].expand(-1, PATH_LEN, 2).contiguous(),
         local_path_len=ones,
         last_maneuver=torch.zeros_like(ones),

@@ -8,8 +8,10 @@ nested dicts of numpy arrays -- each dataclass's fields by name, e.g.
 -- so both packages can be fed the same state. Arrays keep their dtypes.
 `combo_state_dict_from_flax` turns the flax variables of a TinycarCombo
 into the state dict of the port's `models.tinycar_net.TinycarCombo`;
-`td3_state_from_flax` (and its inverse `td3_state_to_flax`) carries a TD3
-learner across: its nets, targets and optax Adam states.
+`combo_state_dict_to_flax` is its inverse; `td3_state_from_flax` (and its
+inverse `td3_state_to_flax`) carries a TD3 learner across: its nets,
+targets and optax Adam states, and `il_state_from_flax` /
+`il_state_to_flax` an imitation learner: its combo and Adam state.
 This module never imports JAX: the caller turns the JAX objects into
 dicts of numpy arrays.
 """
@@ -90,50 +92,138 @@ def vec_state_from_numpy(
 # reference resolutions 128x160, 64x160 and 256x320
 # (tinycarlo_tpu/models/tinycar_net.py:343-353)
 _ENCODER_OUT_HW = {20: (4, 5), 10: (2, 5), 80: (8, 10)}
+_ENCODER_OUT_C = 64  # the last conv block's channels
 
 
-def combo_state_dict_from_flax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """The port's TinycarCombo state dict from flax TinycarCombo variables
-    {"params": ..., "batch_stats": ...} given as nested dicts of numpy
-    arrays (e.g. `models.tinycar_net.load_variables_npz` of a bundled
-    checkpoint).
+def _combo_path(name: str):
+    """(flax path, kind) of a parameter or BatchNorm buffer of the port's
+    TinycarCombo, by its state-dict name. Kinds: "conv2d" ((kh, kw, I, O)
+    <-> (O, I, kh, kw)), "dense" ((in, out) <-> (out, in)), "fc1" (the
+    encoder's Dense, whose rows are also permuted, NHWC <-> NCHW) and
+    "vector" (as it is). A buffer's path is under `batch_stats`."""
+    parts = name.split(".")
+    leaf = {"weight": "kernel", "bias": "bias"}
+    if parts[0] == "encoder" and parts[1] == "convs":
+        block = ("encoder", f"ConvBlock_{parts[2]}")
+        if parts[3] == "conv1":
+            return (block + ("Conv_0", leaf[parts[4]]),
+                    "conv2d" if parts[4] == "weight" else "vector")
+        bn = {"weight": "scale", "bias": "bias", "running_mean": "mean",
+              "running_var": "var"}[parts[4]]
+        return block + ("BatchNorm_0", bn), "vector"
+    if parts[0] == "encoder":
+        return (("encoder", "Dense_0", leaf[parts[2]]),
+                "fc1" if parts[2] == "weight" else "vector")
+    group = {"trunk": "_ManeuverTrunk_0", "head": "_ActorHead_0"}[parts[1]]
+    return (("actor", group, parts[2], leaf[parts[3]]),
+            "dense" if parts[3] == "weight" else "vector")
+
+
+def _combo_to_port(x: np.ndarray, kind: str) -> np.ndarray:
+    """A flax combo array of `kind` (_combo_path) in the port's layout.
+    The flax encoder flattens its last activation NHWC, so the rows of
+    `encoder/Dense_0` come in (h, w, c) order; the port flattens NCHW and
+    gets them permuted to (c, h, w) -- the inverse of tinycar_net.py:
+    311-316."""
+    x = np.asarray(x)
+    if kind == "conv2d":
+        return np.transpose(x, (3, 2, 0, 1))
+    if kind == "dense":
+        return x.T
+    if kind == "fc1":
+        c = _ENCODER_OUT_C
+        h, w = _ENCODER_OUT_HW[x.shape[0] // c]
+        return x.T.reshape(-1, h, w, c).transpose(0, 3, 1, 2).reshape(
+            x.shape[1], -1)
+    return x
+
+
+def _combo_to_flax(x: np.ndarray, kind: str) -> np.ndarray:
+    """The inverse of `_combo_to_port`."""
+    if kind == "conv2d":
+        x = np.transpose(x, (2, 3, 1, 0))
+    elif kind == "dense":
+        x = x.T
+    elif kind == "fc1":
+        c = _ENCODER_OUT_C
+        h, w = _ENCODER_OUT_HW[x.shape[1] // c]
+        x = x.reshape(-1, c, h, w).transpose(0, 2, 3, 1).reshape(
+            x.shape[0], -1).T
+    return np.ascontiguousarray(x)
+
+
+def _combo_names(variables: Dict[str, Any]):
+    """The port's state-dict names of a flax combo's variables."""
+    n_blocks = len([k for k in variables["params"]["encoder"]
+                    if k.startswith("ConvBlock_")])
+    names = []
+    for i in range(n_blocks):
+        pre = f"encoder.convs.{i}."
+        names += [pre + "conv1.weight", pre + "conv1.bias"] + [
+            pre + "bn1." + k for k in ("weight", "bias", "running_mean",
+                                       "running_var")]
+    names += ["encoder.fc1.weight", "encoder.fc1.bias"]
+    for part, layers in (("trunk", ("fcm1", "fcm2", "fcm3")),
+                         ("head", ("fc1", "fc2", "fc3", "fc4"))):
+        names += [f"actor.{part}.{n}.{w}" for n in layers
+                  for w in ("weight", "bias")]
+    return names
+
+
+def flat_paths(tree: Dict[str, Any], prefix: str = "") -> Dict[str, Any]:
+    """{'/'-joined path: leaf} of a nested dict, keys sorted at every level
+    (the order of jax.tree_util's flattening): the flat npz layout of the
+    JAX package's `save_variables_npz`."""
+    out: Dict[str, Any] = {}
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            out.update(flat_paths(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def combo_state_dict_from_flax(variables: Dict[str, Any],
+                               dtype: torch.dtype = torch.float32
+                               ) -> Dict[str, torch.Tensor]:
+    """The port's TinycarCombo state dict, in `dtype`, from flax
+    TinycarCombo variables {"params": ..., "batch_stats": ...} given as
+    nested dicts of numpy arrays (e.g. `models.tinycar_net.
+    load_variables_npz` of a bundled checkpoint).
 
     Conv kernels (kh, kw, I, O) become (O, I, kh, kw) and Dense kernels
-    (in, out) Linear weights (out, in). The flax encoder flattens its last
-    activation NHWC, so the rows of `encoder/Dense_0` come in (h, w, c)
-    order; the port flattens NCHW and gets them permuted to (c, h, w) --
-    the inverse of tinycar_net.py:311-316. BatchNorm takes `batch_stats`'
-    mean and var as its running statistics."""
-    params, stats = variables["params"], variables["batch_stats"]
-    enc, enc_stats = params["encoder"], stats["encoder"]
-    f32 = lambda x: torch.tensor(np.asarray(x, np.float32))  # noqa: E731
+    (in, out) Linear weights (out, in); the encoder's Dense rows are
+    permuted from NHWC to NCHW flattening (`_combo_to_port`). BatchNorm
+    takes `batch_stats`' mean and var as its running statistics."""
     sd: Dict[str, torch.Tensor] = {}
-    n_blocks = len([k for k in enc if k.startswith("ConvBlock_")])
-    for i in range(n_blocks):
-        blk, bst = enc[f"ConvBlock_{i}"], enc_stats[f"ConvBlock_{i}"]
-        pre = f"encoder.convs.{i}."
-        sd[pre + "conv1.weight"] = f32(
-            np.transpose(blk["Conv_0"]["kernel"], (3, 2, 0, 1)))
-        sd[pre + "conv1.bias"] = f32(blk["Conv_0"]["bias"])
-        sd[pre + "bn1.weight"] = f32(blk["BatchNorm_0"]["scale"])
-        sd[pre + "bn1.bias"] = f32(blk["BatchNorm_0"]["bias"])
-        sd[pre + "bn1.running_mean"] = f32(bst["BatchNorm_0"]["mean"])
-        sd[pre + "bn1.running_var"] = f32(bst["BatchNorm_0"]["var"])
-        sd[pre + "bn1.num_batches_tracked"] = torch.tensor(0)
-    kernel = enc["Dense_0"]["kernel"]  # (h*w*c, 256), rows NHWC
-    c = enc[f"ConvBlock_{n_blocks - 1}"]["Conv_0"]["kernel"].shape[-1]
-    h, w = _ENCODER_OUT_HW[kernel.shape[0] // c]
-    weight = kernel.T.reshape(-1, h, w, c).transpose(0, 3, 1, 2)
-    sd["encoder.fc1.weight"] = f32(weight.reshape(kernel.shape[1], -1))
-    sd["encoder.fc1.bias"] = f32(enc["Dense_0"]["bias"])
-    actor = params["actor"]
-    for part, names in (("trunk", ("fcm1", "fcm2", "fcm3")),
-                        ("head", ("fc1", "fc2", "fc3", "fc4"))):
-        group = actor["_ManeuverTrunk_0" if part == "trunk" else "_ActorHead_0"]
-        for name in names:
-            sd[f"actor.{part}.{name}.weight"] = f32(group[name]["kernel"].T)
-            sd[f"actor.{part}.{name}.bias"] = f32(group[name]["bias"])
+    for name in _combo_names(variables):
+        path, kind = _combo_path(name)
+        tree = variables["batch_stats" if "running" in name else "params"]
+        sd[name] = torch.from_numpy(np.array(
+            _combo_to_port(_at(tree, path), kind))).to(dtype)
+        if name.endswith("running_var"):
+            sd[name.replace("running_var", "num_batches_tracked")] = (
+                torch.tensor(0))
     return sd
+
+
+def combo_state_dict_to_flax(sd: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """The inverse of `combo_state_dict_from_flax`: the port's TinycarCombo
+    state dict (or the module) as flax variables {"params", "batch_stats"}
+    in nested dicts of numpy arrays, in the tensors' dtype."""
+    if isinstance(sd, torch.nn.Module):
+        sd = sd.state_dict()
+    out: Dict[str, Any] = {"params": {}, "batch_stats": {}}
+    for name, t in sd.items():
+        if name.endswith("num_batches_tracked"):
+            continue
+        path, kind = _combo_path(name)
+        node = out["batch_stats" if "running" in name else "params"]
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = _combo_to_flax(t.detach().cpu().numpy(), kind)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -311,3 +401,59 @@ def td3_state_to_flax(state, cfg) -> Dict[str, Any]:
         }
     out["steps"] = state.steps.cpu().numpy()
     return out
+
+
+# ---------------------------------------------------------------------------
+# The imitation learner: a flax TinycarCombo and its optax Adam state.
+# ---------------------------------------------------------------------------
+
+def il_state_from_flax(state, cfg, device="cuda",
+                       dtype: torch.dtype = None):
+    """The port's `train.il.ILState` from the JAX package's ILState given
+    as nested numpy arrays (e.g. `jax.device_get(state)`, or the same as
+    dicts {"variables", "opt_state"}): the combo's parameters and running
+    statistics, and optax Adam's count, mu and nu, each in the port's
+    layout (`combo_state_dict_from_flax`). `dtype` defaults to the arrays'
+    own. The model comes in eval mode."""
+    from tinycarlo_torch.train import il
+
+    device = resolve_device(device)
+    variables = _get(state, "variables")
+    if dtype is None:
+        leaf = np.asarray(variables["params"]["encoder"]["Dense_0"]["bias"])
+        dtype = torch.from_numpy(leaf[:1].copy()).dtype
+    sd = combo_state_dict_from_flax(variables, dtype)
+    out = il.state_from_state_dict(sd, cfg, device)
+    opt = _adam(_get(state, "opt_state"))
+    out.opt.count.fill_(int(np.asarray(_get(opt, "count"))))
+    for which in ("mu", "nu"):
+        moments = _get(opt, which)
+        for k, t in getattr(out.opt, which).items():
+            path, kind = _combo_path(k)
+            t.copy_(torch.from_numpy(np.array(_combo_to_port(
+                _at(moments, path), kind))).to(device, dtype))
+    return out
+
+
+def il_state_to_flax(state, cfg) -> Dict[str, Any]:
+    """The inverse of `il_state_from_flax`: the port's ILState as the JAX
+    package's ILState layout in nested dicts of numpy arrays,
+    {"variables": {"params", "batch_stats"}, "opt_state": {"count", "mu",
+    "nu"}}."""
+    def tree(named):
+        out: Dict[str, Any] = {}
+        for name, t in named:
+            path, kind = _combo_path(name)
+            node = out
+            for p in path[:-1]:
+                node = node.setdefault(p, {})
+            node[path[-1]] = _combo_to_flax(t.detach().cpu().numpy(), kind)
+        return out
+
+    opt = state.opt
+    return {
+        "variables": combo_state_dict_to_flax(state.model),
+        "opt_state": {"count": opt.count.cpu().numpy(),
+                      "mu": tree(opt.mu.items()),
+                      "nu": tree(opt.nu.items())},
+    }

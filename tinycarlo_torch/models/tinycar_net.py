@@ -32,6 +32,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 from torch import nn
+from torch.nn import functional as F
 
 from tinycarlo_torch.utils.helper import resolve_device
 
@@ -91,7 +92,15 @@ def pre_obs_rank(obs: torch.Tensor, n_layers: int) -> torch.Tensor:
 
 
 class ConvBlock(nn.Module):
-    """Conv3x3 stride 2 + BatchNorm + ReLU. Reference: tinycar_net.py:18-25."""
+    """Conv3x3 stride 2 + BatchNorm + ReLU. Reference: tinycar_net.py:18-25.
+
+    Eval mode is torch's BatchNorm2d on the running statistics. Train mode
+    is flax.linen.BatchNorm's: the batch is normalized with its mean and
+    biased variance over (N, H, W), and the running statistics move by
+    ra = 0.99 * ra + (1 - 0.99) * stat with the *biased* variance (torch's
+    BatchNorm2d would take the unbiased one). The update is in place, with
+    no host sync, so a CUDA graph can capture it; `num_batches_tracked`
+    stays as it is (flax keeps no count)."""
 
     def __init__(self, in_channels: int, features: int):
         super().__init__()
@@ -99,7 +108,17 @@ class ConvBlock(nn.Module):
         self.bn1 = nn.BatchNorm2d(features, eps=BN_EPS, momentum=BN_MOMENTUM)
 
     def forward(self, x):
-        return torch.relu(self.bn1(self.conv1(x)))
+        x = self.conv1(x)
+        if not self.training:
+            return torch.relu(self.bn1(x))
+        bn = self.bn1
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+            keep = 1.0 - BN_MOMENTUM
+            bn.running_mean.mul_(keep).add_(mean * (1.0 - keep))
+            bn.running_var.mul_(keep).add_(var * (1.0 - keep))
+        return torch.relu(F.batch_norm(x, None, None, bn.weight, bn.bias,
+                                       True, 0.0, bn.eps))
 
 
 class TinycarEncoder(nn.Module):
