@@ -186,9 +186,36 @@ any failed check:
       1e-4, under 0.5% of pixels differing;
    g. the trained combo through `evaluate`, maneuver 0, 200 steps: a
       finite cte_avg.
-16. results: the `kernels` JSON line (K1-K10; the masks and rank kernels'
+16. the LanelineGrid (MapConfig.query_grid): on knuffingen (ppm 150) and
+   simple_layout, `car.car_info` through the grid equal to the full scan
+   bit for bit at 4096 float32 positions fuzzed over the grid's domain
+   (an eighth on cell corners); both branches timed at 4096 envs (CUDA
+   events, median of 7) with the cell count and the candidates a cell;
+   one classes bench step at 4096 envs equal with the grid on and off.
+17. scale-out (parallel/): 4 ranks share the one card (NCCL takes one
+   rank per card, so the backend is asked for explicitly: gloo, which
+   carries CUDA tensors through the host), spawned processes joined
+   through a FileStore on a (data 2 x model 2) mesh; the backend and
+   world size printed first:
+   a. the SP renderer (`parallel.sp.render_observation_batch_sp`,
+      data-sharded) on bench.py's classes states, the example yaml's rgb
+      frames as the rank map, and config 1 under the exact stroke, 4096
+      envs: each rank's K1, K3 or K4 launch on its edge shard's bundle
+      equal to the plain version, each composed frame equal to the
+      unsharded render, each render's seconds;
+   b. the DP x TP x SP TD3 chunk (BASELINE config 5's composition) of
+      config 4's yaml and nets at 1024 envs, 20 eager steps, the replay
+      cut to 8192 slots: the first step's frames equal to the
+      single-process chunk's on the same card (hashes by data rows), the
+      outputs within SCALE_TOL of it, env-steps/s and each rank's peak
+      memory (functional numbers: ranks on one card, collectives through
+      the host; not a scaling result).
+   The kernels' launches on (a) and (b), summed over the ranks, go into
+   their entries as `launches_sp`.
+18. results: the `kernels` JSON line (K1-K10; the masks and rank kernels'
    entries also give their launches on the IL phase's paths,
-   `launches_il`), the card line and, last, the `ok` JSON line.
+   `launches_il`, and the masks, rank and exact kernels' on phase 17's,
+   `launches_sp`), the card line and, last, the `ok` JSON line.
 
 Every phase prints its seconds.
 
@@ -200,6 +227,7 @@ import json
 import math
 import multiprocessing
 import os
+import queue
 import statistics
 import sys
 import time
@@ -605,7 +633,6 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
-    name = torch.cuda.get_device_name(0)
     print(f"card: {card}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; "
           f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
@@ -702,13 +729,28 @@ def main():
             entry["launches_il"] = il_launches[entry["name"]]
     clock.done("imitation learning")
 
-    # ---- 16. results --------------------------------------------------------
+    # ---- 16. the LanelineGrid query -------------------------------------------
+    grid_phase(card)
+    clock.done("grid")
+
+    # ---- 17. scale-out: ranks on the one card ----------------------------------
+    sp_launches = scaleout_phase(card)
+    for entry in kernels:
+        if entry["name"] in sp_launches:
+            entry["launches_sp"] = sp_launches[entry["name"]]
+    for kernel_name in ("masks", "rank", "exact"):
+        check(sp_launches.get(kernel_name, 0) > 0,
+              f"scale-out: the {kernel_name} kernel was not launched")
+    clock.done("scale-out")
+
+    # ---- 18. results --------------------------------------------------------
     print(f"chip_smoke: {time.perf_counter() - start:.1f} s after the "
           f"device check")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
     }}))
     return 0
 
@@ -3106,6 +3148,422 @@ def il_phase(card, rk, ras):
           f"combo): cte_avg {r['cte_avg']:.4f} m, {r['terminations']} "
           f"terminations")
     clock.done("  il card vs CPU, evaluate")
+    return launches
+
+
+# phase 16: the LanelineGrid query (map, ppm) and the fuzzed positions
+GRID_MAPS = {"knuffingen": ("examples/maps/knuffingen.json", 150),
+             "simple_layout": ("examples/maps/simple_layout.json", 450)}
+GRID_POSITIONS = 4096
+
+
+def grid_positions(grid, n, seed):
+    """(n, 2) float64 positions uniform over the grid's domain, the first
+    n // 8 on cell corners (tests/test_query_grid.py:54-64)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    o = grid.origin.double().cpu().numpy()
+    cell = 1.0 / float(grid.inv_cell)
+    pos = rng.uniform(o, o + np.asarray([grid.nx * cell, grid.ny * cell]),
+                      size=(n, 2))
+    pos[: n // 8] = o + np.round((pos[: n // 8] - o) / cell) * cell
+    return pos
+
+
+def grid_states(car_mod, md, pos):
+    """Car states at `pos` on the card (float32), headings spread over
+    [-3, 3], every path on the lanepath's first edge."""
+    import torch
+
+    n = pos.shape[0]
+    position = torch.tensor(pos, dtype=torch.float32, device="cuda")
+    rot = torch.linspace(-3.0, 3.0, n, device="cuda")
+    front = position + 0.0487 * torch.stack([torch.cos(rot),
+                                             torch.sin(rot)], dim=-1)
+    zeros = torch.zeros(n, device="cuda")
+    return car_mod.CarState(
+        position=position, position_front=front, rotation=rot,
+        steering_angle=zeros, radius=zeros.clone(),
+        velocity=torch.full((n,), 0.1, device="cuda"),
+        local_path=md.lanepath.edges[0].expand(
+            n, car_mod.PATH_LEN, 2).contiguous(),
+        local_path_len=torch.full((n,), 2, dtype=torch.int32,
+                                  device="cuda"),
+        last_maneuver=torch.zeros(n, dtype=torch.int32, device="cuda"))
+
+
+def grid_phase(card):
+    """Phase 16: car_info through the LanelineGrid against the full scan
+    on the card, bit for bit, at GRID_POSITIONS fuzzed float32 positions
+    on knuffingen and simple_layout; both branches timed (CUDA events,
+    median of 7); one classes bench step with the grid on against it off."""
+    import torch
+
+    from tinycarlo_torch import car as car_mod
+    from tinycarlo_torch import env as fenv
+    from tinycarlo_torch import vector
+    from tinycarlo_torch.config import CarConfig, MapConfig
+    from tinycarlo_torch.map_compiler import compile_map
+
+    for name, (path, ppm) in GRID_MAPS.items():
+        kw = dict(json_path=os.path.join(REPO, path), pixel_per_meter=ppm)
+        md_g = compile_map(MapConfig(query_grid=True, **kw))
+        md_f = compile_map(MapConfig(**kw))
+        g = md_g.laneline_grid
+        check(g is not None, f"grid {name}: no grid built")
+        st = grid_states(car_mod, md_g,
+                         grid_positions(g, GRID_POSITIONS, seed=1))
+        cfg = CarConfig()
+        got = car_mod.car_info(md_g, cfg, st)
+        want = car_mod.car_info(md_f, cfg, st)
+        for k in want:
+            check(torch.equal(got[k], want[k]),
+                  f"grid {name}: car_info {k} differs from the full scan")
+        ms_g = cuda_ms(lambda: car_mod.car_info(md_g, cfg, st))
+        ms_f = cuda_ms(lambda: car_mod.car_info(md_f, cfg, st))
+        print(f"grid {name}: {md_f.packed_layer_bounds[-1]} laneline "
+              f"edges, {g.nx}x{g.ny} = {g.nx * g.ny} cells, K = "
+              f"{g.cand_idx.shape[1]} candidates a cell (layer bounds "
+              f"{g.layer_bounds}); car_info at {GRID_POSITIONS} envs equal "
+              f"to the full scan bit for bit; grid {ms_g:.4f} ms, full "
+              f"scan {ms_f:.4f} ms (CUDA events, median of 7; {card})")
+
+    cfg_grid = {**CONFIG, "map": {**CONFIG["map"], "query_grid": True}}
+    out = []
+    for c in (CONFIG, cfg_grid):
+        params = fenv.make_env_params(c)
+        vstate, _ = vector.reset(params, N_ENVS, seed=3, render=False)
+        action = {"car_control": torch.tensor(
+            [[SPEED, 0.1]], device="cuda").expand(N_ENVS, 2),
+            "maneuver": torch.zeros(N_ENVS, dtype=torch.int32,
+                                    device="cuda")}
+        out.append(vector.step(params, vstate, action,
+                               respawn_rows=torch.zeros(
+                                   N_ENVS, dtype=torch.long,
+                                   device="cuda"))[1:])
+    check(out[1][0] is not None and params.map_data.laneline_grid
+          is not None, "grid step: the grid map has no grid")
+    for a, b in zip(out[0][:4], out[1][:4]):
+        check(torch.equal(a, b), "grid step: an output differs with the "
+              "grid on")
+    for k in out[0][4]:
+        check(torch.equal(out[0][4][k], out[1][4][k]),
+              f"grid step: info {k} differs with the grid on")
+    print(f"grid step: one vector.step of bench.py's classes config at "
+          f"{N_ENVS} envs equal with the grid on and off (obs, reward, "
+          f"terminated, truncated, info)")
+
+
+# phase 17: ranks sharing the one card, their backend asked for explicitly
+# (NCCL takes one rank per card); a (data 2 x model 2) mesh
+SCALE_BACKEND, SCALE_WORLD, SCALE_MODEL = "gloo", 4, 2
+# the DP x TP x SP chunk: BASELINE config 4's yaml and nets, 1024 envs in
+# all, 20 eager steps, the replay cut from 100 000 slots to 8192
+SCALE_CHUNK_ENVS, SCALE_CHUNK_STEPS, SCALE_REPLAY = 1024, 20, 8192
+SCALE_DEADLINE_S = 300
+# the sharded chunk against the single-process chunk on the card: cuDNN
+# and cuBLAS may take other algorithms at 512 rows than at 1024, and TP
+# sums its row-parallel products in another order, so per-env outputs move
+# (measured on an H100 80GB HBM3 at 700 W: reward 2.5e-4, cte 7.6e-6,
+# the batch-mean laneline distances 1.2e-7, no episode end moved, losses
+# 3.5e-5 relative)
+SCALE_TOL = {"reward": 1e-3, "cte": 1e-4, "laneline_distances": 1e-5,
+             "sigma": 0.0, "done_mismatches": 0, "critic1_loss_rel": 1e-3,
+             "critic2_loss_rel": 1e-3, "actor_loss_rel": 1e-3}
+
+
+def sp_cases():
+    """The SP cases: (name, params, fmt), each rendered at N_ENVS."""
+    from tinycarlo_torch import env as fenv
+    from tinycarlo_torch.benchmarks import gym_bench as gb
+
+    return [("classes", fenv.make_env_params(CONFIG), "classes"),
+            ("rank", fenv.make_env_params(SERVE_CONFIG), "rank"),
+            ("exact", fenv.make_env_params(gb.CONFIG1_EXACT), "classes")]
+
+
+def sp_shard_kernel(rk, ras, fenv, sp, params, states, mesh, fmt):
+    """This rank's shard of the SP render: its compaction bundle through
+    the kernel the SP path launches (K1 masks, K3 rank or K4 exact)
+    against the plain version. Returns (kernel name, live copies)."""
+    import torch
+
+    md, cam = params.map_data, params.cfg.camera
+    res, t = tuple(cam.resolution), cam.line_thickness
+    u0, v0, u1, v1, draw = fenv._project_packed_batch_soa(
+        params, states, edges=sp._model_shard(md.packed_edges, 1, mesh),
+        edge_mask=sp._model_shard(md.packed_edge_mask, 1, mesh,
+                                  value=False))
+    elayer = sp._model_shard(md.packed_edge_layer, 0, mesh)
+    exact = ras._exact(t, cam.stroke)
+    compact = rk.compact_env_exact_soa if exact else rk.compact_env_idx_soa
+    _, bundle = rk._packed_bundle(compact, u0, v0, u1, v1, draw, elayer,
+                                  md.n_layers, res, t,
+                                  cam.max_visible_segments, None)
+    if exact:
+        kernel, plain = rk.exact_kernel, rk.rasterize_masks_exact_env_plain
+    elif fmt == "rank":
+        kernel, plain = rk.rank_kernel, rk.rasterize_rank_env_plain
+    else:
+        kernel, plain = rk.masks_kernel, rk.rasterize_masks_env_plain
+    got = kernel(bundle, md.n_layers, res, t)
+    want = plain(bundle, md.n_layers, res, t)
+    check(torch.equal(got, want), f"SP shard: the {kernel.NAME} kernel "
+          "differs from its plain version")
+    return kernel.NAME, int(bundle[-1].sum())
+
+
+def scaleout_chunk(mesh, first_obs):
+    """The DP x TP x SP chunk over `mesh` (None: the single-process
+    chunk), BASELINE config 4 at SCALE_CHUNK_ENVS. `first_obs` (a list)
+    receives the first step's rendered observations. Returns (outputs,
+    seconds)."""
+    import torch
+
+    from tinycarlo_torch import env as fenv
+    from tinycarlo_torch.benchmarks import td3_bench
+    from tinycarlo_torch.models.tinycar_net import encoder_apply_fn
+    from tinycarlo_torch.parallel import mesh as pmesh
+    from tinycarlo_torch.parallel import tp as ptp
+    from tinycarlo_torch.parallel.sp import render_observation_batch_sp
+    from tinycarlo_torch.train.td3_loop import chunk, init_loop
+
+    params = td3_bench.make_params("cuda")
+    enc = encoder_apply_fn(td3_bench.make_encoder(params, torch.bfloat16))
+    cfg, loop_cfg, stack = td3_config4(replay_size=SCALE_REPLAY)
+    state = init_loop(params, cfg, loop_cfg, SCALE_CHUNK_ENVS, seed=0,
+                      stack=stack)
+    if mesh is None:
+        def render(p, s, out_dtype):
+            obs = fenv.render_observation_batch(p, s, out_dtype=out_dtype)
+            if not first_obs:
+                first_obs.append(obs.clone())
+            return obs
+        kw = {}
+    else:
+        for f in ("vstate", "queue", "noise", "maneuver", "sigma",
+                  "ep_count"):
+            setattr(state, f, pmesh.shard_batch(getattr(state, f), mesh))
+        state.buf = pmesh.replicate(state.buf, mesh)
+        ts = state.td3_state
+        for net in ("actor", "critic1", "critic2"):
+            o = getattr(ts, "opt_" + net)
+            o.mu = ptp.shard_state_dict(getattr(ts, net), o.mu, mesh)
+            o.nu = ptp.shard_state_dict(getattr(ts, net), o.nu, mesh)
+            for name in (net, net + "_target"):
+                ptp.shard_params(getattr(ts, name), mesh)
+
+        def render(p, s, out_dtype):
+            obs = render_observation_batch_sp(p, s, mesh,
+                                              out_dtype=out_dtype)
+            if not first_obs:
+                first_obs.append(obs.clone())
+            return obs
+        kw = {"mesh": mesh}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, out = chunk(state, params, cfg, loop_cfg, enc,
+                       SCALE_CHUNK_STEPS, stack=stack, graph=False,
+                       obs_render_fn=render, **kw)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def scaleout_work(rank, world, init_file):
+    """One rank of phase 17 (SCALE_WORLD ranks on the one card)."""
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+
+    from tinycarlo_torch import env as fenv
+    from tinycarlo_torch import vector
+    from tinycarlo_torch.ops import rasterize as ras
+    from tinycarlo_torch.ops import rasterize_kernels as rk
+    from tinycarlo_torch.parallel import mesh as pmesh
+    from tinycarlo_torch.parallel import multihost, sp
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)  # every rank on the one card
+    multihost.initialize(init_method="file://" + init_file,
+                         world_size=world, rank=rank, backend=SCALE_BACKEND)
+    mesh = pmesh.make_mesh(model=SCALE_MODEL, device_type="cuda")
+    rows = pmesh.data_rows(N_ENVS, mesh)
+    torch.cuda.reset_peak_memory_stats()
+    res = {"backend": dist.get_backend(), "world": dist.get_world_size(),
+           "coord": (pmesh.axis_index(mesh, "data"),
+                     pmesh.axis_index(mesh, "model")),
+           "shards": {}, "sp": {}}
+
+    # (a) each case's shard kernel against its plain version, and the
+    # unsharded single-process render of the same states
+    cases = []
+    for name, params, fmt in sp_cases():
+        states = vector.reset(params, N_ENVS, seed=5, render=False)[0].env
+        mine = pmesh.shard_batch(states, mesh)
+        res["shards"][name] = sp_shard_kernel(rk, ras, fenv, sp, params,
+                                              mine, mesh, fmt)
+        ref = fenv.render_observation_batch(params, states, fmt=fmt)[rows]
+        cases.append((name, params, fmt, states, ref))
+    # the main path: the counts from 0
+    kernels = (rk.masks_kernel, rk.rank_kernel, rk.exact_kernel)
+    for k in kernels:
+        k.launches = 0
+    for name, params, fmt, states, ref in cases:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frame = sp.render_observation_batch_sp(params, states, mesh,
+                                               data_sharded=True, fmt=fmt)
+        torch.cuda.synchronize()
+        res["sp"][name] = {"s": time.perf_counter() - t0,
+                           "equal": bool(torch.equal(frame, ref)),
+                           "lit": int((frame > 0).sum())}
+    first = []
+    out, seconds = scaleout_chunk(mesh, first)
+    res["launches"] = {k.NAME: k.launches for k in kernels}
+    res["chunk_s"] = seconds
+    res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+
+    def sha(x):
+        return hashlib.sha256(x.contiguous().view(torch.uint8).cpu()
+                              .numpy().tobytes()).hexdigest()
+
+    res["obs_sha"] = sha(first[0])
+    if rank == 0:
+        # the single-process chunk on the same card, its first frames'
+        # hash by data rows, and the sharded outputs' distance from it
+        single_first = []
+        single, res["single_s"] = scaleout_chunk(None, single_first)
+        per = SCALE_CHUNK_ENVS // pmesh.axis_size(mesh, "data")
+        res["single_obs_sha"] = [
+            sha(single_first[0][i * per:(i + 1) * per])
+            for i in range(pmesh.axis_size(mesh, "data"))]
+        res["vs_single"] = chunk_deviation(out, single)
+    dist.destroy_process_group()
+    return res
+
+
+def chunk_deviation(out, want):
+    """{output: the largest |out - want| (and for the losses the largest
+    relative one)}, and the count of differing episode ends."""
+    dev = {}
+    for k, v in want.items():
+        if k == "done":
+            dev["done_mismatches"] = int((out[k] != v).sum())
+            continue
+        d = (out[k].double() - v.double()).abs()
+        dev[k] = float(d.max())
+        if k.endswith("_loss"):
+            dev[k + "_rel"] = float((d / v.double().abs().clamp(
+                min=1e-30)).max())
+    return dev
+
+
+def scaleout_rank(rank, world, init_file, results):
+    """A phase-17 process: scaleout_work's result, or its traceback, on
+    the results queue; exits non-zero on a failure."""
+    import traceback
+
+    try:
+        results.put((rank, scaleout_work(rank, world, init_file)))
+    except BaseException:
+        results.put((rank, traceback.format_exc()))
+        sys.exit(1)
+
+
+def scaleout_phase(card):
+    """Phase 17: SCALE_WORLD ranks on the one card over the
+    SCALE_BACKEND backend, a (data 2 x model 2) mesh: (a) the SP renderer
+    on bench.py's classes states, the example yaml's rgb (rank) frames and
+    config 1 under the exact stroke, N_ENVS envs, each rank's K1 / K3 / K4
+    launch on its shard bit-equal to the plain version and each composed
+    frame to the unsharded render; (b) the DP x TP x SP TD3 chunk of
+    BASELINE config 4's yaml and nets at SCALE_CHUNK_ENVS envs,
+    SCALE_CHUNK_STEPS eager steps, its first frames bit-equal to the
+    single-process chunk's and its outputs beside the single-process
+    chunk's. Returns the main path's launches by kernel, summed over the
+    ranks."""
+    import tempfile
+
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    init_file = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_"),
+                             "store")
+    procs = [ctx.Process(target=scaleout_rank,
+                         args=(r, SCALE_WORLD, init_file, results))
+             for r in range(SCALE_WORLD)]
+    for p in procs:
+        p.start()
+    got = {}
+    deadline = time.monotonic() + SCALE_DEADLINE_S
+    try:
+        while len(got) < SCALE_WORLD:
+            check(time.monotonic() < deadline, "scale-out: the ranks took "
+                  f"over {SCALE_DEADLINE_S} s")
+            try:
+                rank, res = results.get(timeout=5.0)
+            except queue.Empty:
+                # a rank that died before reporting fails the phase now
+                dead = [p.exitcode for p in procs if p.exitcode]
+                check(not dead, f"scale-out: ranks exited {dead}")
+                continue
+            check(isinstance(res, dict), f"scale-out rank {rank} failed:\n"
+                  f"{res}")
+            got[rank] = res
+        for p in procs:
+            p.join(max(1.0, deadline - time.monotonic()))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    check([p.exitcode for p in procs] == [0] * SCALE_WORLD,
+          f"scale-out ranks exited {[p.exitcode for p in procs]}")
+    r0 = got[0]
+    print(f"scale-out: backend {r0['backend']}, world size {r0['world']}, "
+          f"a (data {SCALE_WORLD // SCALE_MODEL} x model {SCALE_MODEL}) "
+          f"mesh, every rank on the one card ({card})")
+    launches = {}
+    for rank in range(SCALE_WORLD):
+        res = got[rank]
+        d = res["coord"][0]
+        for name, sp_res in res["sp"].items():
+            check(sp_res["equal"], f"SP {name}: rank {rank}'s composed "
+                  "frame differs from the unsharded render")
+        check(res["obs_sha"] == r0["single_obs_sha"][d],
+              f"scale-out chunk: rank {rank}'s first-step frames differ "
+              "from the single-process chunk's")
+        for k, n in res["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+        shards = ", ".join(f"{n}: {k} kernel on {c} live copies equal to "
+                           f"its plain version" for n, (k, c)
+                           in res["shards"].items())
+        sps = ", ".join(f"{n} {v['s'] * 1e3:.1f} ms" for n, v
+                        in res["sp"].items())
+        print(f"  rank {rank} (data {d}, model {res['coord'][1]}): {shards}; "
+              f"SP renders of its {N_ENVS // 2} rows (composed frames equal "
+              f"to the unsharded render): {sps}; chunk "
+              f"{res['chunk_s']:.2f} s, first-step frames equal to the "
+              f"single-process chunk's; peak memory "
+              f"{res['peak_gb']:.2f} GB; launches {res['launches']}")
+    rate = SCALE_CHUNK_ENVS * SCALE_CHUNK_STEPS / max(
+        got[r]["chunk_s"] for r in got)
+    single = SCALE_CHUNK_ENVS * SCALE_CHUNK_STEPS / r0["single_s"]
+    print(f"scale-out chunk (functional numbers: {SCALE_WORLD} ranks on one "
+          f"card, collectives through the host; not a scaling result): "
+          f"{SCALE_CHUNK_ENVS} envs x {SCALE_CHUNK_STEPS} eager steps, "
+          f"{rate:.0f} env-steps/s (the slowest rank's wall); the "
+          f"single-process eager chunk on the same card {single:.0f} "
+          f"env-steps/s; peak memory per rank "
+          f"{max(got[r]['peak_gb'] for r in got):.2f} GB")
+    print(f"scale-out chunk against the single-process chunk: "
+          f"{json.dumps(r0['vs_single'])} (limits {json.dumps(SCALE_TOL)})")
+    for k, limit in SCALE_TOL.items():
+        check(r0["vs_single"][k] <= limit, f"scale-out chunk: {k} "
+              f"{r0['vs_single'][k]} over {limit} from the single-process "
+              "chunk's")
     return launches
 
 

@@ -1049,3 +1049,118 @@ def test_bn_train_update_is_capturable():
     assert torch.equal(a.bn1.running_var, b.bn1.running_var)
     assert not torch.equal(a.bn1.running_var, torch.ones_like(
         a.bn1.running_var))
+
+
+@pytest.mark.parametrize("name", ["knuffingen", "simple_layout"])
+def test_grid_car_info_matches_full_scan(name):
+    """car_info through the LanelineGrid equals the full scan bit for bit
+    on the card, float32, at 1024 positions fuzzed over the grid's domain
+    (an eighth of them on cell corners)."""
+    _require_cuda()
+    from tinycarlo_torch import car as car_mod
+    from tinycarlo_torch.config import CarConfig, MapConfig
+    from tinycarlo_torch.map_compiler import compile_map
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    path, ppm = {"knuffingen": ("knuffingen.json", 150),
+                 "simple_layout": ("simple_layout.json", 450)}[name]
+    kw = dict(json_path=os.path.join(repo, "examples", "maps", path),
+              pixel_per_meter=ppm)
+    md_g = compile_map(MapConfig(query_grid=True, **kw))
+    md_f = compile_map(MapConfig(**kw))
+    g = md_g.laneline_grid
+    assert g is not None and g.cand_idx.is_cuda
+    rng = np.random.default_rng(4)
+    o = g.origin.double().cpu().numpy()
+    cell = 1.0 / float(g.inv_cell)
+    pos = rng.uniform(o, o + np.asarray([g.nx * cell, g.ny * cell]),
+                      size=(1024, 2))
+    pos[:128] = o + np.round((pos[:128] - o) / cell) * cell
+    n = len(pos)
+    position = torch.tensor(pos, dtype=torch.float32, device="cuda")
+    rot = torch.linspace(-3.0, 3.0, n, device="cuda")
+    zeros = torch.zeros(n, device="cuda")
+    st = car_mod.CarState(
+        position=position,
+        position_front=position + 0.0487 * torch.stack(
+            [torch.cos(rot), torch.sin(rot)], dim=-1),
+        rotation=rot, steering_angle=zeros, radius=zeros,
+        velocity=torch.full((n,), 0.1, device="cuda"),
+        local_path=md_g.lanepath.edges[0].expand(
+            n, car_mod.PATH_LEN, 2).contiguous(),
+        local_path_len=torch.full((n,), 2, dtype=torch.int32,
+                                  device="cuda"),
+        last_maneuver=torch.zeros(n, dtype=torch.int32, device="cuda"))
+    got = car_mod.car_info(md_g, CarConfig(), st)
+    want = car_mod.car_info(md_f, CarConfig(), st)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+
+
+# the SP test's config: bench.py's (simple_layout classes, t = 2) at 64x80
+SP_CONFIG = {
+    "sim": {"fps": 30, "observation_space_format": "classes"},
+    "car": {"wheelbase": 0.0487, "track_width": 0.027, "max_velocity": 0.15,
+            "max_steering_angle": 30, "steering_speed": 30,
+            "max_acceleration": 0.1, "max_deceleration": 1.0},
+    "camera": {"position": [0.0, -0.005, 0.04], "orientation": [22, 0, 0],
+               "resolution": [64, 80], "fov": 80, "max_range": 0.5,
+               "line_thickness": 2},
+    "map": {"json_path": os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        "examples", "maps", "simple_layout.json"), "pixel_per_meter": 450},
+}
+
+
+def _sp_rank(rank, init_file, out_dir):
+    """One of two gloo ranks on the one card: the SP classes and rank
+    renders of 64 envs against the unsharded renders."""
+    from tinycarlo_torch import env as fenv
+    from tinycarlo_torch import vector
+    from tinycarlo_torch.parallel import make_mesh, multihost
+    from tinycarlo_torch.parallel.sp import render_observation_batch_sp
+
+    torch.cuda.set_device(0)  # both ranks on the one card
+    multihost.initialize(init_method="file://" + init_file, world_size=2,
+                         rank=rank, backend="gloo")
+    mesh = make_mesh(model=2, device_type="cuda")
+    out = {}
+    for fmt in ("classes", "rank"):
+        cfg = dict(SP_CONFIG, sim=dict(SP_CONFIG["sim"],
+                                       observation_space_format=fmt))
+        params = fenv.make_env_params(cfg)
+        states = vector.reset(params, 64, seed=3, render=False)[0].env
+        want = fenv.render_observation_batch(params, states)
+        kernel = fenv.render_kernel(params)
+        before = kernel.launches
+        got = render_observation_batch_sp(params, states, mesh, fmt=fmt)
+        out[fmt] = (bool(torch.equal(got, want)), kernel.launches - before,
+                    int((want > 0).sum()))
+    torch.save(out, os.path.join(out_dir, f"sp_{rank}.pt"))
+    torch.distributed.destroy_process_group()
+
+
+def test_sp_render_two_ranks(tmp_path):
+    """Two gloo ranks share the one card (model = 2): each launches the
+    masks or rank kernel once on its edge shard, and the composed frame
+    equals the unsharded render bit for bit."""
+    _require_cuda()
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    init_file = str(tmp_path / "store")
+    procs = [ctx.Process(target=_sp_rank, args=(r, init_file, str(tmp_path)))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(300)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    assert [p.exitcode for p in procs] == [0, 0]
+    for r in range(2):
+        out = torch.load(tmp_path / f"sp_{r}.pt", weights_only=False)
+        for fmt, (equal, launches, lit) in out.items():
+            assert equal and launches == 1 and lit > 0, (r, fmt)

@@ -1,5 +1,6 @@
 """tinycarlo_torch.map_compiler against tinycarlo_tpu.map_compiler: every
 MapData array equal (values and dtype) on the vendored maps."""
+import dataclasses
 import os
 
 import jax.numpy as jnp
@@ -42,15 +43,17 @@ def test_map_data_equal(source, tdt, jdt):
     want = to_numpy_tree(jax_compile(jmap, base_path=base, dtype=jdt))
     got = port_tree(port_compile(pmap, base_path=base, dtype=tdt,
                                  device="cpu"))
-    # LanelineGrid is not ported (query_grid defaults to False, so the
-    # JAX map carries None there and to_numpy_tree drops it)
-    assert "laneline_grid" not in want
+    # MapConfig.query_grid defaults to False: neither map carries a grid
+    assert "laneline_grid" not in want and got["laneline_grid"] is None
     assert_trees_equal(got, want)
     assert got["packed_layer_bounds"][-1] > 0
-
-
-def test_query_grid_not_ported():
-    from tinycarlo_torch.map_compiler import compile_map_data
-
-    with pytest.raises(NotImplementedError, match="M2"):
-        compile_map_data({}, 1, query_grid=True, device="cpu")
+    # with the grid on, the LanelineGrid arrays are equal too (or None in
+    # both where pruning would not pay)
+    jgrid = jax_compile(dataclasses.replace(jmap, query_grid=True),
+                        base_path=base, dtype=jdt).laneline_grid
+    pgrid = port_compile(dataclasses.replace(pmap, query_grid=True),
+                         base_path=base, dtype=tdt,
+                         device="cpu").laneline_grid
+    assert (jgrid is None) == (pgrid is None)
+    if jgrid is not None:
+        assert_trees_equal(port_tree(pgrid), to_numpy_tree(jgrid))

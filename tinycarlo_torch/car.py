@@ -227,6 +227,46 @@ def find_local_path(
     return state, truncated
 
 
+def _first_argmins(d: torch.Tensor, bounds, n_layers: int) -> torch.Tensor:
+    """(B, L) int64: per layer l, the first index of d's (B, K) minimum
+    within [bounds[l], bounds[l + 1]), and 0 for an edgeless layer (the
+    masked argmin's first index)."""
+    zero = torch.zeros(d.shape[0], dtype=torch.int64, device=d.device)
+    return torch.stack(
+        [torch.argmin(d[:, bounds[l]: bounds[l + 1]], dim=-1) + bounds[l]
+         if bounds[l + 1] > bounds[l] else zero for l in range(n_layers)],
+        dim=-1,
+    )
+
+
+def _grid_nearest(map_data: MapData, position: torch.Tensor) -> torch.Tensor:
+    """(B, L) packed-edge index of each layer's nearest edge through the
+    LanelineGrid (tinycarlo_tpu/car.py:310-374): the position's cell by
+    floor and clamp, its candidate row by a plain index (the JAX package's
+    one-hot matmul is a TPU gather workaround; both are exact), then the
+    full scan's first-wins argmin over the row's per-layer slices. The
+    row keeps every minimiser and tie in packed order, so the edge is the
+    full scan's within the grid's domain; an edgeless layer gives packed
+    edge 0, as the full scan does."""
+    g = map_data.laneline_grid
+    cx = torch.clamp(torch.floor((position[:, 0] - g.origin[0]) * g.inv_cell)
+                     .long(), 0, g.nx - 1)
+    cy = torch.clamp(torch.floor((position[:, 1] - g.origin[1]) * g.inv_cell)
+                     .long(), 0, g.ny - 1)
+    cell = cy * g.nx + cx
+    idx = g.cand_idx[cell]  # (B, K)
+    pos = position[:, None, :]
+    d = torch.abs(geo.distance(pos, g.cand_p0[cell])
+                  + geo.distance(pos, g.cand_p1[cell]))
+    d = torch.where(idx >= 0, d, geo._BIG)
+    gb = g.layer_bounds
+    k_best = _first_argmins(d, gb, map_data.n_layers)
+    ne_idx = torch.clamp(idx.gather(1, k_best), min=0).long()
+    return torch.stack(
+        [ne_idx[:, l] if gb[l + 1] > gb[l] else torch.zeros_like(ne_idx[:, l])
+         for l in range(map_data.n_layers)], dim=-1)
+
+
 def car_info(map_data: MapData, cfg: CarConfig, state: CarState):
     """Cross-track error, heading error and per-laneline distances, batched.
 
@@ -235,7 +275,8 @@ def car_info(map_data: MapData, cfg: CarConfig, state: CarState):
     paths shorter than 2 edges. The per-laneline nearest-edge scan runs
     once over the packed edge axis with a first-wins argmin per layer over
     the static layer slices (tinycarlo_tpu.car.car_info's packed path,
-    car.py:398-479).
+    car.py:398-479), or, when the map carries a LanelineGrid, over the
+    position's cell's candidates (`_grid_nearest`), with the same result.
 
     Returns a dict: cte (B,), heading_error (B,), laneline_distances
     (B, L), local_path (B, PATH_LEN, 2) coords, local_path_len (B,),
@@ -252,20 +293,14 @@ def car_info(map_data: MapData, cfg: CarConfig, state: CarState):
 
     pn = map_data.packed_nodes[0]
     pe = map_data.packed_edges[0]
-    p0, p1 = geo.edge_endpoints(pn, pe)
     pos = state.position[:, None, :]
-    d = torch.abs(geo.distance(pos, p0) + geo.distance(pos, p1))  # (B, Ep)
-    bounds = map_data.packed_layer_bounds
-    ne_idx = torch.stack(
-        [
-            torch.argmin(d[:, bounds[l]: bounds[l + 1]], dim=-1) + bounds[l]
-            if bounds[l + 1] > bounds[l]
-            # edgeless layer: the masked-argmin fallback (first index)
-            else torch.zeros(d.shape[0], dtype=torch.int64, device=d.device)
-            for l in range(map_data.n_layers)
-        ],
-        dim=-1,
-    )  # (B, L) packed-edge indices
+    if map_data.laneline_grid is not None:
+        ne_idx = _grid_nearest(map_data, state.position)
+    else:
+        p0, p1 = geo.edge_endpoints(pn, pe)
+        d = torch.abs(geo.distance(pos, p0) + geo.distance(pos, p1))
+        ne_idx = _first_argmins(d, map_data.packed_layer_bounds,
+                                map_data.n_layers)
     ne = pe[ne_idx]  # (B, L, 2)
     inside = geo.within_edge_bounds(pn, ne, pos)
     d_perp = torch.abs(geo.signed_distance_to_edge(pn, ne, pos))

@@ -7,8 +7,7 @@ All fields are static Python values.
 
 The port's own copy of tinycarlo_tpu/config.py, field for field: importing
 the JAX package's module would run tinycarlo_tpu/__init__.py, which
-imports jax. In this package `MapConfig.query_grid=True` is not ported
-yet and raises NotImplementedError where it is used.
+imports jax.
 """
 from __future__ import annotations
 
@@ -85,12 +84,11 @@ class MapConfig:
     # half the larger map dimension); positions beyond the inflated
     # bbox clamp to the boundary cell and may then deviate from the
     # full scan -- unreachable under any terminating config.
-    # DEFAULT OFF: on reference-sized maps (packed E ~264-740) the
-    # fused full scan is FASTER than the pruned query -- the dense
-    # elementwise scan fuses into the step program while the grid's
-    # candidate routing (one-hot matmul or row gather, both measured)
-    # adds ~0.2 ms/step at 4096 envs (docs/KERNELS.md round-4).
-    # Enable for maps with orders of magnitude more edges.
+    # DEFAULT OFF, as in the JAX package, whose TPU measurements found
+    # the full scan faster on reference-sized maps (packed E ~264-740;
+    # docs/KERNELS.md round-4). The port's two branches on the H100:
+    # chip_smoke.py phase 16, in PERF.md. Enable for maps with orders of
+    # magnitude more edges.
     # `query_grid_cells` targets the total cell count (actual count
     # rounds to the map aspect ratio).
     query_grid: bool = False

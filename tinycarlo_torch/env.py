@@ -104,17 +104,24 @@ def _check_format(params: EnvParams, fmt: Optional[str]) -> str:
     return fmt
 
 
-def _project_packed_batch_soa(params: EnvParams, states: EnvState):
+def _project_packed_batch_soa(params: EnvParams, states: EnvState,
+                              edges: Optional[torch.Tensor] = None,
+                              edge_mask: Optional[torch.Tensor] = None):
     """Project the packed edge axis for a batch of states: (B, Ep)
-    u0/v0/u1/v1 pixel coords + (B, Ep) draw mask."""
+    u0/v0/u1/v1 pixel coords + (B, Ep) draw mask. `edges` (1, E, 2) and
+    `edge_mask` (1, E) project a slice of the packed axis instead (the
+    segment-parallel renderer's shard); the projection is per edge, so a
+    slice's values are the full axis's."""
     cfg = params.cfg
     md = params.map_data
+    if edges is None:
+        edges, edge_mask = md.packed_edges, md.packed_edge_mask
     body = cam.car_world_to_body_matrix(
         states.car.position, states.car.rotation
     )
     pose = torch.matmul(params.camera.E, body)  # (B, 3, 4), camera.py:61
     u0, v0, u1, v1, draw = cam.project_layers_batch_soa(
-        md.packed_nodes, md.packed_edges, md.packed_edge_mask, pose,
+        md.packed_nodes, edges, edge_mask, pose,
         params.camera.K, tuple(cfg.camera.resolution), cfg.camera.max_range,
     )  # (B, 1, Ep) each
     return u0[:, 0], v0[:, 0], u1[:, 0], v1[:, 0], draw[:, 0]

@@ -4,12 +4,8 @@ Counterpart of tinycarlo_tpu/map_compiler.py. A map is compiled once on
 the host in numpy into padded arrays plus precomputed adjacency and spawn
 tables, then moved to the device in one pass, so every runtime query is
 a fixed-shape masked tensor op. The arrays are equal to the JAX
-package's, field for field.
-
-Not ported yet: the `LanelineGrid` spatial-pruning grid
-(tinycarlo_tpu/map_compiler.py:110-197) and the grid branch of
-`car.car_info`. `MapConfig.query_grid` defaults to False, and True
-raises NotImplementedError (ROADMAP M2).
+package's, field for field, the `LanelineGrid` of `car.car_info`'s
+pruned nearest-edge query included.
 """
 from __future__ import annotations
 
@@ -73,6 +69,116 @@ class SpawnTable:
 
 
 @dataclass
+class LanelineGrid:
+    """Uniform spatial grid over the packed laneline edges, pruning
+    car_info's per-laneline nearest-edge scans to a per-cell candidate list
+    (tinycarlo_tpu.map_compiler.LanelineGrid, map_compiler.py:77-108).
+
+    A cell keeps every edge e of a layer with lb(e) <= min_f ub(f), where
+    lb / ub bound the sum-of-endpoint-distances metric over the cell's
+    rectangle, so every minimiser (and tie) of any position inside the
+    cell survives; candidates keep packed-edge order, so the first-wins
+    argmin picks the full scan's edge. Positions outside the grid clamp to
+    the boundary cell."""
+
+    origin: torch.Tensor  # (2,) float (x, y) of cell (0, 0)'s corner
+    inv_cell: torch.Tensor  # () float, 1 / cell size
+    cand_idx: torch.Tensor  # (C, K) int32 packed-edge index, -1 = pad
+    cand_p0: torch.Tensor  # (C, K, 2) float src endpoint coords
+    cand_p1: torch.Tensor  # (C, K, 2) float dst endpoint coords
+    nx: int = 1
+    ny: int = 1
+    # per-layer offsets into the K axis (len L + 1): layer l's candidates
+    # occupy [bounds[l], bounds[l + 1]) of every row
+    layer_bounds: Tuple[int, ...] = ()
+
+
+def _build_laneline_grid(
+    packed_nodes: np.ndarray,  # (Np, 2) float (post-dtype cast)
+    packed_edges: np.ndarray,  # (Ep, 2) int32
+    n_real_edges: int,
+    layer_bounds: Tuple[int, ...],
+    dimension_hw: Tuple[float, float],
+    target_cells: int,
+    margin: Optional[float],
+) -> Optional[LanelineGrid]:
+    """Host-side grid construction (tinycarlo_tpu/map_compiler.py:
+    111-197), as numpy arrays. None when pruning would not pay (candidate
+    rows of at least 0.9 of the edge axis)."""
+    if n_real_edges == 0:
+        return None
+    h_m, w_m = float(dimension_hw[0]), float(dimension_hw[1])
+    if margin is None:
+        margin = 0.5 * max(h_m, w_m)
+    x0, y0 = -margin, -margin
+    x1, y1 = w_m + margin, h_m + margin
+    area = max((x1 - x0) * (y1 - y0), 1e-9)
+    cell = math.sqrt(area / max(target_cells, 1))
+    nx = max(1, int(math.ceil((x1 - x0) / cell)))
+    ny = max(1, int(math.ceil((y1 - y0) / cell)))
+
+    # cell rectangles (C, 1, 2) against edge endpoints (1, E, 2), row-major
+    # cell = cy * nx + cx
+    cxs = x0 + cell * np.arange(nx)
+    cys = y0 + cell * np.arange(ny)
+    lo = np.stack([np.tile(cxs, ny), np.repeat(cys, nx)], axis=-1)
+    hi = lo + cell
+    a = packed_nodes[packed_edges[:n_real_edges, 0]].astype(np.float64)
+    b = packed_nodes[packed_edges[:n_real_edges, 1]].astype(np.float64)
+
+    def rect_dists(p):  # (E, 2) -> (C, E) min & max distance to rect
+        clamped = np.clip(p[None], lo[:, None], hi[:, None])
+        dmin = np.linalg.norm(clamped - p[None], axis=-1)
+        far = np.maximum(
+            np.abs(p[None] - lo[:, None]), np.abs(p[None] - hi[:, None])
+        )
+        return dmin, np.linalg.norm(far, axis=-1)
+
+    a_min, a_max = rect_dists(a)
+    b_min, b_max = rect_dists(b)
+    lb = a_min + b_min  # (C, E)
+    ub = a_max + b_max
+
+    n_layers = len(layer_bounds) - 1
+    keep = np.zeros_like(lb, dtype=bool)
+    for l in range(n_layers):
+        s, e = layer_bounds[l], layer_bounds[l + 1]
+        if e <= s:
+            continue
+        thresh = ub[:, s:e].min(axis=1, keepdims=True)
+        keep[:, s:e] = lb[:, s:e] <= thresh
+    per_layer_k = [
+        int(keep[:, layer_bounds[l]: layer_bounds[l + 1]].sum(axis=1).max())
+        if layer_bounds[l + 1] > layer_bounds[l] else 0
+        for l in range(n_layers)
+    ]
+    k_tot = sum(per_layer_k)
+    if k_tot >= 0.9 * n_real_edges:
+        return None
+
+    ncells = nx * ny
+    cand_idx = np.full((ncells, k_tot), -1, dtype=np.int32)
+    out_bounds = tuple(np.cumsum([0] + per_layer_k).tolist())
+    for l in range(n_layers):
+        s, e = layer_bounds[l], layer_bounds[l + 1]
+        o = out_bounds[l]
+        for c in range(ncells):
+            (idx,) = np.nonzero(keep[c, s:e])
+            cand_idx[c, o: o + len(idx)] = idx + s
+    safe = np.maximum(cand_idx, 0)
+    return LanelineGrid(
+        origin=np.asarray([x0, y0], dtype=packed_nodes.dtype),
+        inv_cell=np.asarray(1.0 / cell, dtype=packed_nodes.dtype),
+        cand_idx=cand_idx,
+        cand_p0=packed_nodes[packed_edges[safe, 0]],
+        cand_p1=packed_nodes[packed_edges[safe, 1]],
+        nx=nx,
+        ny=ny,
+        layer_bounds=out_bounds,
+    )
+
+
+@dataclass
 class MapData:
     """A compiled map. Laneline layers are stacked along a leading axis,
     all padded to the same Nmax/Emax; the packed view concatenates every
@@ -92,6 +198,8 @@ class MapData:
     packed_edge_layer: torch.Tensor  # (Ep,) int32 layer id per edge
     # cumulative per-layer edge offsets into the packed axis (len L + 1)
     packed_layer_bounds: Tuple[int, ...] = ()
+    # car_info's spatial-pruning grid (LanelineGrid); None = full scan
+    laneline_grid: Optional[LanelineGrid] = None
     laneline_names: Tuple[str, ...] = ()
     pixel_per_meter: int = 1
 
@@ -161,7 +269,10 @@ def compile_map(
         raw = json.load(f)
     return compile_map_data(raw, map_config.pixel_per_meter,
                             spawn_points=map_config.spawn_points, dtype=dtype,
-                            query_grid=map_config.query_grid, device=device)
+                            query_grid=map_config.query_grid,
+                            query_grid_cells=map_config.query_grid_cells,
+                            query_grid_margin=map_config.query_grid_margin,
+                            device=device)
 
 
 def compile_map_data(
@@ -169,17 +280,16 @@ def compile_map_data(
     pixel_per_meter: float,
     spawn_points: Optional[Tuple[int, ...]] = None,
     dtype: torch.dtype = torch.float32,
-    query_grid: bool = False,
+    query_grid: bool = True,
+    query_grid_cells: int = 4096,
+    query_grid_margin: Optional[float] = None,
     device="cuda",
 ) -> MapData:
     """Host-side compilation of a parsed map JSON (numpy), moved to
     `device` once at the end. Same arrays as
-    tinycarlo_tpu.map_compiler.compile_map_data."""
-    if query_grid:
-        raise NotImplementedError(
-            "MapConfig.query_grid=True (LanelineGrid) is not ported yet "
-            "(ROADMAP M2)"
-        )
+    tinycarlo_tpu.map_compiler.compile_map_data, whose defaults it keeps:
+    `query_grid` builds the LanelineGrid (None where it would not pay);
+    `compile_map` passes MapConfig's, which defaults to False."""
     device = resolve_device(device)
     ndt = numpy_dtype(dtype)
     ppm = float(pixel_per_meter)
@@ -272,6 +382,15 @@ def compile_map_data(
     packed_edges[: len(pk_edges)] = pk_edges
     packed_edge_layer = np.zeros((ep,), np.int32)
     packed_edge_layer[: len(pk_lay)] = pk_lay
+    packed_bounds = tuple(
+        np.cumsum([0] + [l.n_edges for l in layer_arrays]).tolist()
+    )
+    grid = None
+    if query_grid:
+        grid = _build_laneline_grid(
+            packed_nodes, packed_edges, len(pk_edges), packed_bounds,
+            (height, width), query_grid_cells, query_grid_margin,
+        )
 
     map_data = MapData(
         laneline_nodes=np.stack([l.nodes for l in layer_arrays]),
@@ -286,9 +405,8 @@ def compile_map_data(
         packed_edges=packed_edges[None],
         packed_edge_mask=(np.arange(ep) < len(pk_edges))[None],
         packed_edge_layer=packed_edge_layer,
-        packed_layer_bounds=tuple(
-            np.cumsum([0] + [l.n_edges for l in layer_arrays]).tolist()
-        ),
+        packed_layer_bounds=packed_bounds,
+        laneline_grid=grid,
         laneline_names=names,
         pixel_per_meter=int(pixel_per_meter),
     )

@@ -15,7 +15,22 @@ updates, all on the device. The semantics the JAX module lists (:11-19):
   * OU sigma is constant within an episode: at an episode's end it takes
     the host-set level `sigma_target`, or with `total_episodes` the
     reference's 0.4 * (1 - e / EPISODES) from the env's own count e.
-The SP renderer's `obs_render_fn` (:128-141) is not ported (M16).
+
+`obs_render_fn` (:128-141, :182-189) replaces the float-obs render, the
+composition point of the segment-parallel renderer
+(`parallel.sp.render_observation_batch_sp`). With `mesh`, the chunk is one
+data-parallel rank of BASELINE config 5's DP x TP x SP chunk (JAX:
+tests/_multihost_chunk_common.py): the state's envs, queue, noise,
+maneuvers, sigma and episode counts are this rank's rows of the global
+batch, the replay buffer and loop scalars are the same on every rank, and
+a TP learner (`parallel.tp.shard_params`) does its own collectives over
+the model axis. Each step all-gathers its replay rows over the data axis
+in global env order, so every rank inserts the same rows at the same
+draws and samples the same batch: the replicas stay equal with no
+gradient all-reduce. Every random draw of a step is of the global batch's
+shape, from generators seeded alike on every rank, and a rank keeps its
+rows: its respawns, OU noise and maneuvers are the single-process
+chunk's. The outputs are gathered to the global batch.
 
 On the card a chunk is a sequence of replayed CUDA graphs, not one graph
 of T steps (at ~2000 kernels a step that would be 400k nodes). A step's
@@ -46,6 +61,8 @@ import torch
 from tinycarlo_torch import env as fenv
 from tinycarlo_torch import vector
 from tinycarlo_torch.models.tinycar_net import FEATURE_VEC_SIZE, one_hot
+from tinycarlo_torch.parallel.mesh import (DATA_AXIS, axis_group,
+                                           axis_size, data_rows)
 from tinycarlo_torch.train import replay as rb
 from tinycarlo_torch.train import td3
 from tinycarlo_torch.utils import graphs
@@ -136,12 +153,34 @@ def init_loop(
     )
 
 
+class _DataParallel:
+    """A chunk's data axis: this rank's rows of the global batch of
+    `n` envs, the global draws cut to them, and all-gathers in global env
+    order over the data group."""
+
+    def __init__(self, mesh, n_local: int):
+        self.group = axis_group(mesh, DATA_AXIS)
+        self.size = axis_size(mesh, DATA_AXIS)
+        self.n = n_local * self.size
+        self.rows = data_rows(self.n, mesh)
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        # bool goes as its bytes (the gloo backend has no bool type)
+        wire = x.to(torch.uint8) if x.dtype == torch.bool else x
+        parts = [torch.empty_like(wire) for _ in range(self.size)]
+        torch.distributed.all_gather(parts, wire.contiguous(),
+                                     group=self.group)
+        out = torch.cat(parts)
+        return out.bool() if x.dtype == torch.bool else out
+
+
 def step_kinds(state: LoopState, cfg: td3.TD3Config, loop_cfg: LoopConfig,
-               n_steps: int):
+               n_steps: int, b: Optional[int] = None):
     """The kind of each of the next `n_steps` steps, from the host's
     counts, and the counts after them: a kind is None (collect only) or
-    the tuple of the step's updates, True for an actor update."""
-    b = state.queue.shape[0]
+    the tuple of the step's updates, True for an actor update. `b`: the
+    envs a step inserts (default: the state's)."""
+    b = state.queue.shape[0] if b is None else b
     filled, steps = state.filled_host, state.steps_host
     kinds = []
     for _ in range(n_steps):
@@ -176,21 +215,35 @@ class _Runtime:
 
 def _step(state: LoopState, params, cfg: td3.TD3Config,
           loop_cfg: LoopConfig, encoder_apply: Callable, stack, kind,
-          rt: _Runtime) -> None:
+          rt: _Runtime, obs_render_fn: Optional[Callable] = None,
+          dp: Optional[_DataParallel] = None) -> None:
     """One fused step (td3_loop.py:144-278), in place, its outputs written
-    at row rt.t of rt.out; reads row rt.t of rt.draws when injected."""
+    at row rt.t of rt.out; reads row rt.t of rt.draws when injected. With
+    `dp` the state holds this rank's rows (module docstring)."""
     s = state
     b = s.queue.shape[0]
     dev = s.queue.device
     draw = None
     if rt.draws is not None:
         draw = {k: v.index_select(0, rt.t)[0] for k, v in rt.draws.items()}
+    # per-env draws are of the global batch under dp, cut to this rank's
+    # rows (eviction and sample draws are the global batch's anyway)
+    n_draw, mine = (b, slice(None)) if dp is None else (dp.n, dp.rows)
+
+    def drawn(key, make):
+        return (draw[key] if draw is not None else make(n_draw))[mine]
+
     net_dtype = s.queue.dtype
     feat_seq = s.queue[:, :-1]
     m_onehot = one_hot(s.maneuver, cfg.maneuver_dim, net_dtype)
-    eps = (draw["ou"] if draw is not None else torch.randn(
-        s.noise.shape, generator=s.generator, dtype=s.noise.dtype,
-        device=dev))
+    eps = drawn("ou", lambda n: torch.randn(
+        (n, *s.noise.shape[1:]), generator=s.generator,
+        dtype=s.noise.dtype, device=dev))
+    respawn = None  # vector.step draws them itself
+    if draw is not None or dp is not None:
+        respawn = drawn("respawn", lambda n: torch.randint(
+            params.map_data.spawns.count, (n,),
+            generator=s.vstate.generator, device=dev))
     noise = (s.noise + cfg.noise_theta * (cfg.noise_mean - s.noise)
              + s.sigma[:, None] * eps)
     action = td3.select_action(s.td3_state, cfg, feat_seq, m_onehot, noise,
@@ -207,19 +260,22 @@ def _step(state: LoopState, params, cfg: td3.TD3Config,
     vstate, obs, rew, term, trunc, info = vector.step(
         params, s.vstate, env_action, stack=stack,
         max_episode_steps=loop_cfg.max_episode_steps, render=not float_obs,
-        respawn_rows=None if draw is None else draw["respawn"],
+        respawn_rows=respawn,
     )
     if float_obs:
         # 0/1 masks in the encoder's dtype straight from the kernel, of
         # the post-reset states vector.step would render
-        obs = fenv.render_observation_batch(params, vstate.env,
-                                            out_dtype=loop_cfg.obs_dtype)
+        render = (fenv.render_observation_batch if obs_render_fn is None
+                  else obs_render_fn)
+        obs = render(params, vstate.env, out_dtype=loop_cfg.obs_dtype)
     f = encoder_apply(obs).to(s.queue.dtype)
     queue = torch.cat([f[:, None], s.queue[:, :-1]], dim=1)
-    rb.add_batch(s.buf, {
-        "x": queue[:, 1:], "m": s.maneuver, "a": action,
-        "r": rew[:, None].to(torch.float32), "x1": queue[:, :-1],
-    }, s.generator, None if draw is None else draw["evict"])
+    rows = {"x": queue[:, 1:], "m": s.maneuver, "a": action,
+            "r": rew[:, None].to(torch.float32), "x1": queue[:, :-1]}
+    if dp is not None:
+        rows = {k: dp.gather(v) for k, v in rows.items()}
+    rb.add_batch(s.buf, rows, s.generator,
+                 None if draw is None else draw["evict"])
 
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     losses = {"critic1_loss": zero, "critic2_loss": zero,
@@ -241,13 +297,18 @@ def _step(state: LoopState, params, cfg: td3.TD3Config,
     else:
         level = s.sigma_target.expand(ep_count.shape)
     sigma = torch.where(done, level, s.sigma)
-    fresh = (draw["maneuver"] if draw is not None else torch.randint(
-        3, (b,), generator=s.generator, device=dev, dtype=torch.int32))
+    fresh = drawn("maneuver", lambda n: torch.randint(
+        3, (n,), generator=s.generator, device=dev, dtype=torch.int32))
     maneuver = torch.where(done, fresh.to(torch.int32), s.maneuver)
 
-    out = {"reward": rew, "done": done, "sigma": sigma, "cte": info["cte"],
+    per_env = {"reward": rew, "done": done, "sigma": sigma,
+               "cte": info["cte"], "lines": info["laneline_distances"]}
+    if dp is not None:
+        per_env = {k: dp.gather(v) for k, v in per_env.items()}
+    lines = per_env.pop("lines")
+    out = {**per_env,
            # batch-mean per-laneline distances (vis_utils.py's logging)
-           "laneline_distances": info["laneline_distances"].mean(dim=0),
+           "laneline_distances": lines.mean(dim=0),
            **{k: v.to(torch.float32) for k, v in losses.items()}}
     with torch.no_grad():
         graphs.copy_into(s.vstate, vstate)
@@ -261,9 +322,10 @@ def _step(state: LoopState, params, cfg: td3.TD3Config,
         rt.t.add_(1)
 
 
-def _outputs(state: LoopState, params) -> Dict[str, torch.Tensor]:
-    """One step's outputs, zeros of their shapes and dtypes."""
-    b, dev = state.queue.shape[0], state.queue.device
+def _outputs(state: LoopState, params, b: int) -> Dict[str, torch.Tensor]:
+    """One step's outputs of a b-env batch, zeros of their shapes and
+    dtypes."""
+    dev = state.queue.device
     dtype = state.vstate.env.car.position.dtype
     n_lines = fenv._info(params, state.vstate.env)["laneline_distances"]
     return {
@@ -288,6 +350,8 @@ def chunk(
     stack: Optional[WrapperStack] = None,
     draws: Optional[Dict[str, torch.Tensor]] = None,
     graph: bool = True,
+    obs_render_fn: Optional[Callable] = None,
+    mesh=None,
 ) -> Tuple[LoopState, Dict[str, torch.Tensor]]:
     """Run `n_steps` fused rollout + train steps, updating `state` in
     place. `encoder_apply(obs) -> (B, F)` features (typically
@@ -301,14 +365,36 @@ def chunk(
     docstring); otherwise each step runs eagerly. `draws` (tests only)
     injects a chunk's random numbers, each (T, ...): "ou" (B, A) normals,
     "evict" (B,) slots, "sample" (U, batch) indices, "maneuver" (B,) and
-    "respawn" (B,) spawn rows."""
+    "respawn" (B,) spawn rows, of the global batch under a mesh.
+
+    `obs_render_fn(params, env_state, out_dtype=...) -> obs` replaces the
+    float-obs render (it needs `loop_cfg.obs_dtype`). `mesh`: a
+    (data, model) `parallel.mesh` DeviceMesh; the state holds this rank's
+    rows of the global batch (module docstring). Under a mesh of more
+    than one rank the chunk runs eagerly and `graph=True` on the card
+    raises: the collectives go through the host (gloo) and cannot be
+    captured in a CUDA graph, and a capture that left them out would
+    silently skip them."""
     dev = state.queue.device
+    if obs_render_fn is not None and loop_cfg.obs_dtype is None:
+        raise ValueError("obs_render_fn replaces the float-obs render: set "
+                         "loop_cfg.obs_dtype")
+    dp = None
+    if mesh is not None and mesh.size() > 1:
+        if graph and dev.type == "cuda":
+            raise ValueError("a chunk over a mesh of more than one rank "
+                             "runs eagerly: pass graph=False")
+        if stack is not None and stack.observation_fns:
+            raise ValueError("observation wrappers draw per local env: "
+                             "not defined under a mesh")
+        dp = _DataParallel(mesh, state.queue.shape[0])
+    n_global = state.queue.shape[0] if dp is None else dp.n
     key = (id(params), id(encoder_apply), id(stack), cfg, loop_cfg, n_steps,
-           draws is not None)
+           draws is not None, id(obs_render_fn), id(mesh))
     rt = state.runtime
     if rt is None or rt.key != key:
         rt = state.runtime = _Runtime(key, n_steps,
-                                      _outputs(state, params), dev)
+                                      _outputs(state, params, n_global), dev)
     if draws is not None:
         if rt.draws is None:
             rt.draws = {k: v.to(dev).clone() for k, v in draws.items()}
@@ -316,13 +402,14 @@ def chunk(
             for k, v in draws.items():
                 rt.draws[k].copy_(v)
     rt.t.zero_()
-    kinds, filled, steps = step_kinds(state, cfg, loop_cfg, n_steps)
+    kinds, filled, steps = step_kinds(state, cfg, loop_cfg, n_steps,
+                                      n_global)
     use_graph = graph and dev.type == "cuda"
     kernel = fenv.render_kernel(params)
     for kind in kinds:
         def run(kind=kind):
             _step(state, params, cfg, loop_cfg, encoder_apply, stack, kind,
-                  rt)
+                  rt, obs_render_fn, dp)
 
         g = rt.graphs.get(kind) if use_graph else None
         if g is not None:
