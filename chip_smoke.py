@@ -212,10 +212,38 @@ any failed check:
       the host; not a scaling result).
    The kernels' launches on (a) and (b), summed over the ranks, go into
    their entries as `launches_sp`.
-18. results: the `kernels` JSON line (K1-K10; the masks and rank kernels'
+18. host tools (the digital twin, real_world.TinyCarloRealWorldEnv, on
+   the loopback backend; viz; the examples):
+   a. the twin on examples/config_simple_layout.yaml (rgb 128x160) and on
+      bench.py's classes config: the rank or masks kernel bit-equal to its
+      plain version on the twin's own B = 1 bundles of 3 steps, each
+      step's observation the plain frame; on the rgb config 300
+      Stanley-steered steps (examples/stanley_control.py's k = 4, speed
+      0.4) through the replayed CUDA graph and eagerly, each with its
+      steps/s, the rank launches equal to the eager renders plus the
+      capture, and a trace of TRACED replays with one rank-kernel record a
+      step; on both configs 50 steps on the card against the CPU port
+      with the same actions: positions equal, cte within 1e-5, under 0.5%
+      of the pixels differing;
+   b. an AutosysCar stranded 8 cm off the lanepath with no history, its
+      transport and tracker faked, driving back on the guidance of the
+      twin's state on the card: iterations and seconds, within 0.02 m of
+      cte and 20 degrees at the end;
+   c. viz.render_overview of the twin's state on the card equal bit for
+      bit to the same pose drawn through the CPU port;
+   d. the examples' main() in this process: train_td3 at 64 envs (2
+      chunks of 100 steps, its env-steps/s, a 5 x 200-step evaluation of
+      one maneuver), stanley_control --batch 4096 for 20 steps,
+      benchmark_tinycar_net for one maneuver of 100 steps (cte_avg below
+      0.02 m), render_map to a temporary PNG.
+   The masks and rank kernels' launches on these paths (each count set to
+   0 before a path and read after it; the plain checks apart) go into
+   their entries as `launches_host`.
+19. results: the `kernels` JSON line (K1-K10; the masks and rank kernels'
    entries also give their launches on the IL phase's paths,
-   `launches_il`, and the masks, rank and exact kernels' on phase 17's,
-   `launches_sp`), the card line and, last, the `ok` JSON line.
+   `launches_il`, and on phase 18's, `launches_host`, and the masks, rank
+   and exact kernels' on phase 17's, `launches_sp`), the card line and,
+   last, the `ok` JSON line.
 
 Every phase prints its seconds.
 
@@ -743,7 +771,14 @@ def main():
               f"scale-out: the {kernel_name} kernel was not launched")
     clock.done("scale-out")
 
-    # ---- 18. results --------------------------------------------------------
+    # ---- 18. the host tools: the twin, the overview, the examples --------------
+    host_launches = host_tools_phase(card, rk, ras)
+    for entry in kernels:
+        if entry["name"] in ("masks", "rank"):
+            entry["launches_host"] = host_launches[entry["name"]]
+    clock.done("host tools")
+
+    # ---- 19. results --------------------------------------------------------
     print(f"chip_smoke: {time.perf_counter() - start:.1f} s after the "
           f"device check")
     print(json.dumps({"kernels": kernels}))
@@ -2379,14 +2414,13 @@ def replay_trace(card, name, env, kernel, gb):
     before = kernel.launches
     busy_ms, top, by_name, wall_ms = device_profile(
         lambda: env.step(action), calls=TRACED)
-    check(kernel.launches == before, f"gym {name}: replays counted "
-          "launches")
+    check(kernel.launches == before, f"{name}: replays counted launches")
     records = sum(c for _, c in by_name.values())
     kernel_ms = kernel_device_ms(by_name, f"{kernel.NAME}_kernel")
     check(busy_ms is not None and kernel_ms is not None,
-          f"gym {name}: a trace of {TRACED} replayed steps does not hold "
+          f"{name}: a trace of {TRACED} replayed steps does not hold "
           f"one {kernel.NAME} kernel record a step")
-    print(f"gym {name} replayed step, traced ({TRACED} steps) on {card}: "
+    print(f"{name} replayed step, traced ({TRACED} steps) on {card}: "
           f"wall {wall_ms:.4f} ms, device busy {busy_ms:.4f} ms, idle share "
           f"{1 - busy_ms / wall_ms:.4f}, {records:g} kernel records a "
           f"step, {kernel.NAME} kernel {kernel_ms:.4f} ms device")
@@ -2441,7 +2475,7 @@ def gym_shim(card, rk):
                   f"wrapper launches {r['launches']}, on {card}")
         clock.done(f"  gym {name} runs")
         # a replay's launch passes no wrapper: the trace counts them
-        replay_trace(card, name, env, kernel, gb)
+        replay_trace(card, f"gym {name}", env, kernel, gb)
         env.close()
         equal = gb.graph_matches_eager(config, steps=20)
         check(equal == 20, f"gym {name}: {20 - equal} of 20 replayed steps "
@@ -3564,6 +3598,270 @@ def scaleout_phase(card):
         check(r0["vs_single"][k] <= limit, f"scale-out chunk: {k} "
               f"{r0['vs_single'][k]} over {limit} from the single-process "
               "chunk's")
+    return launches
+
+
+# ---- 18. the host tools -----------------------------------------------------
+# the twin's runs: Stanley-steered steps through the graph and eagerly, and
+# card against CPU
+TWIN_STEPS = 300
+TWIN_CPU_STEPS = 50
+# the examples' sizes in this phase: train_td3 at its own width, 2 chunks
+TD3_EXAMPLE = ["--envs", "64", "--chunks", "2", "--steps", "100",
+               "--eval-steps", "200", "--eval-episodes", "5",
+               "--eval-maneuvers", "1"]
+
+
+def counted(rk, fn):
+    """fn()'s result and the render kernels' launches in it: each count
+    set to 0 just before and read just after."""
+    kernels = (rk.masks_kernel, rk.rank_kernel, rk.exact_kernel)
+    for k in kernels:
+        k.launches = 0
+    out = fn()
+    return out, {k.NAME: k.launches for k in kernels}
+
+
+def add_launches(total, launches):
+    for name, n in launches.items():
+        total[name] = total.get(name, 0) + n
+
+
+def twin_runs(card, rk, tb, gb, name, launches):
+    """The twin of config `name` through the graph and eagerly, TWIN_STEPS
+    Stanley steps each: steps/s, the wrappers' launches equal to the eager
+    renders and captures, a trace of TRACED replays holding one
+    render-kernel record a step."""
+    from tinycarlo_torch import env as fenv
+
+    for mode in ("graph", "eager"):
+        env = tb.make_twin(tb.CONFIGS[name], mode)
+        kernel = fenv.render_kernel(env.params)
+        r, got = counted(rk, lambda: tb.run(env, TWIN_STEPS))
+        add_launches(launches, got)
+        captures = len(env._graphs)
+        want = r["renders"] - env.replays + captures
+        check(got[kernel.NAME] == want and sum(got.values()) == want,
+              f"twin {name} {mode}: launches {got}, not {want} of "
+              f"{kernel.NAME} ({r['renders']} renders, {env.replays} "
+              f"replays, {captures} captures)")
+        check(mode != "graph" or env.replays == TWIN_STEPS,
+              f"twin {name}: {env.replays} replays of {TWIN_STEPS} steps")
+        print(f"twin {name} ({env.observation_space_format}) {mode}: "
+              f"{TWIN_STEPS} Stanley steps, {r['steps_per_s']:.1f} steps/s, "
+              f"{r['ms_step']:.4f} ms a step (first step "
+              f"{r['first_ms']:.1f} ms), {r['resets']} resets, "
+              f"{r['renders']} renders, {env.replays} replays, "
+              f"{kernel.NAME} launches {got[kernel.NAME]}, on {card}")
+        if mode == "graph":
+            # a replay's launch passes no wrapper: the trace counts them
+            _, got = counted(rk, lambda: replay_trace(
+                card, f"twin {name}", env, kernel, gb))
+            add_launches(launches, got)
+        env.close()
+
+
+def twin_card_vs_cpu(card, tb, name, launches, rk):
+    """TWIN_CPU_STEPS steps of the twin on the card (graph) and on the CPU,
+    the same Stanley actions (from the card's info) to both: positions
+    equal (the loopback car is numpy), cte within 1e-5, under 0.5% of
+    the pixels differing. Returns the card's twin."""
+    import numpy as np
+
+    card_env = tb.make_twin(tb.CONFIGS[name], "graph")
+    cpu_env = tb.make_twin(tb.CONFIGS[name], "cpu")
+
+    def run():
+        (obs_g, info_g), (obs_c, info_c) = (card_env.reset(seed=tb.SEED),
+                                            cpu_env.reset(seed=tb.SEED))
+        err, frac = 0.0, float((obs_g != obs_c).mean())
+        for _ in range(TWIN_CPU_STEPS):
+            action = tb.stanley(card_env, info_g)
+            obs_g, _, te_g, tr_g, info_g = card_env.step(action)
+            obs_c, _, te_c, tr_c, info_c = cpu_env.step(action)
+            check((te_g, tr_g) == (te_c, tr_c), f"twin {name}: the card's "
+                  "and the CPU's terminations differ")
+            check(np.array_equal(info_g["position"], info_c["position"]),
+                  f"twin {name}: the card's and the CPU's positions differ")
+            err = max(err, abs(info_g["cte"] - info_c["cte"]))
+            frac = max(frac, float((obs_g != obs_c).mean()))
+            if te_g or tr_g:
+                (_, info_g), _ = card_env.reset(), cpu_env.reset()
+        return err, frac
+
+    (err, frac), got = counted(rk, run)
+    add_launches(launches, got)
+    check(err <= 1e-5 and frac < 0.005, f"twin {name}: card and CPU differ:"
+          f" cte by {err}, {frac:.4%} of pixels")
+    print(f"twin {name} card vs CPU: {TWIN_CPU_STEPS} steps, positions "
+          f"equal, cte within {err:.2e}, observations differ on at most "
+          f"{frac:.4%} of pixels")
+    cpu_env.close()
+    return card_env
+
+
+def autosys_driveback(card, env):
+    """An AutosysCar stranded 8 cm off the lanepath with no history, its
+    hardware a LoopbackRig, drives back on the guidance of the twin's
+    state on the card; it must end within the reference's 0.02 m of cte
+    and 20 degrees."""
+    import numpy as np
+
+    from tinycarlo_torch.real_world.base import (make_guidance,
+                                                 snap_to_lanepath)
+    from tinycarlo_torch.real_world.environments.env_autosys import (
+        AutosysCar,
+    )
+    from tinycarlo_torch.real_world.environments.env_loopback import (
+        LoopbackRig,
+    )
+
+    params = env.params
+    target, trot, _ = snap_to_lanepath(params, np.asarray([0.9, 1.2]), 0.0)
+    off = np.asarray([-math.sin(trot), math.cos(trot)]) * 0.08
+    rig = LoopbackRig((float(target[0] + off[0]), float(target[1] + off[1]),
+                       trot))
+    car = AutosysCar(pixel_per_meter=450)
+    car.transport = car.tracker = rig
+    car.pose()
+    guide = make_guidance(params, env.state)
+    calls = [0]
+
+    def guidance(*args):
+        calls[0] += 1
+        return guide(*args)
+
+    cte0 = guidance(car._position, car._rotation, 0)[0]
+    start = time.perf_counter()
+    car.reposition(target, trot, guidance=guidance)
+    seconds = time.perf_counter() - start
+    cte, heading, _, _, final_rot = guide(car._position, car._rotation, 0)
+    d = final_rot - car._rotation
+    check(abs(cte0) > 0.05 and abs(cte) < 0.02
+          and abs(math.atan2(math.sin(d), math.cos(d))) < math.radians(20),
+          f"autosys drive-back: cte {cte0} -> {cte}, heading off by {d}")
+    print(f"autosys drive-back on the card's guidance: {rig.moves} "
+          f"iterations, {calls[0]} guidance calls, {seconds:.2f} s, cte "
+          f"{cte0:.4f} -> {cte:.4f} m, on {card}")
+
+
+def overview_vs_cpu(env):
+    """viz.render_overview of the twin's state on the card against the
+    same pose through the port on the CPU, bit for bit."""
+    import numpy as np
+
+    from tinycarlo_torch import env as fenv
+    from tinycarlo_torch import viz
+
+    params_cpu = fenv.make_env_params(env.config_path or env.config,
+                                      device="cpu")
+    state_cpu = fenv.EnvState(car=type(env.state.car)(**{
+        k: v.cpu() for k, v in vars(env.state.car).items()}))
+    ppm = env.overview_pixel_per_meter
+    got, _ = viz.render_overview(env.params, env.state, ppm)
+    want, _ = viz.render_overview(params_cpu, state_cpu, ppm)
+    check(np.array_equal(got, want), "overview: the card's state draws "
+          "another frame than the same pose on the CPU")
+    print(f"overview: render_overview of the twin's state on the card "
+          f"equal to the CPU port's, {got.shape[1]}x{got.shape[0]}, "
+          f"{int((got != 0).any(-1).sum())} lit pixels")
+
+
+def examples_in_process(card, rk, launches):
+    """The examples' main() in this process: train_td3 at its own width
+    (64 envs, 2 chunks of 100 steps, one 5 x 200-step maneuver of
+    evaluation), stanley_control --batch 4096 for 20 steps,
+    benchmark_tinycar_net for one maneuver of 100 steps, render_map to a
+    temporary PNG."""
+    import tempfile
+
+    import cv2
+
+    from tinycarlo_torch.examples import (benchmark_tinycar_net,
+                                          render_map, stanley_control,
+                                          train_td3)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        saved = os.environ.get("IL_MODEL")
+        os.environ["IL_MODEL"] = os.path.join(tmp, "absent.npz")
+        try:
+            r, got = counted(rk, lambda: train_td3.main(
+                TD3_EXAMPLE + ["--out", tmp]))
+        finally:
+            if saved is None:
+                os.environ.pop("IL_MODEL")
+            else:
+                os.environ["IL_MODEL"] = saved
+        add_launches(launches, got)
+        check(got["rank"] > 0 and math.isfinite(r["eval"][0]["cte_avg"]),
+              f"train_td3: launches {got}, eval {r['eval'][0]['cte_avg']}")
+        print(f"example train_td3 (64 envs, rgb 128x160, 2 chunks of 100 "
+              f"steps): "
+              f"{', '.join(f'{x:.1f}' for x in r['env_steps_per_s'])} "
+              f"env-steps/s a chunk (the first captures its graphs); "
+              f"evaluation cte_avg {r['eval'][0]['cte_avg']:.4f} m; rank "
+              f"launches {got['rank']}; plot "
+              f"{'written' if r['plot'] else 'skipped'}; on {card}")
+        r, got = counted(rk, lambda: stanley_control.main(
+            ["--batch", "4096", "--steps", "20"]))
+        add_launches(launches, got)
+        check(math.isfinite(r["mean_abs_cte"]), "stanley_control --batch")
+        print(f"example stanley_control --batch 4096, 20 steps: "
+              f"{r['env_steps_per_s']:.1f} env-steps/s, mean |cte| "
+              f"{r['mean_abs_cte']:.4f} m, on {card}")
+        r, got = counted(rk, lambda: benchmark_tinycar_net.main(
+            ["--maneuvers", "1", "--steps", "100", "--traces", tmp]))
+        add_launches(launches, got)
+        e = r["eval"][0]
+        check(got["rank"] > 0 and e["cte_avg"] < CTE_LIMIT,
+              f"benchmark_tinycar_net: launches {got}, cte_avg "
+              f"{e['cte_avg']}")
+        print(f"example benchmark_tinycar_net (maneuver 0, 5 x 100 steps): "
+              f"cte_avg {e['cte_avg']:.4f} m, {e['steps_per_s']:.1f} "
+              f"steps/s, rank launches {got['rank']}, on {card}")
+        png = os.path.join(tmp, "map.png")
+        r = render_map.main(["--out", png, "--traces", tmp])
+        image = cv2.imread(png)
+        check(image is not None and image.shape == r["shape"]
+              and image.any(), "render_map: no PNG")
+        print(f"example render_map: {png} {image.shape[1]}x"
+              f"{image.shape[0]} with maneuver 0's trace")
+
+
+def host_tools_phase(card, rk, ras):
+    """Phase 18: the digital twin, the overview and the examples on the
+    card. Prints the seconds of each part; returns the phase's launches
+    by kernel."""
+    from tinycarlo_torch import env as fenv
+    from tinycarlo_torch.benchmarks import gym_bench as gb
+    from tinycarlo_torch.benchmarks import twin_bench as tb
+
+    clock = PhaseClock()
+    launches = {}
+    for name in tb.CONFIGS:
+        env = tb.make_twin(tb.CONFIGS[name], "graph")
+        kernel, err, n = shim_kernel_vs_plain(
+            rk, ras, fenv, env, gb.actions(3, seed=6), tb.SEED)
+        env.close()
+        print(f"twin {name}: the {kernel.NAME} kernel equal to its plain "
+              f"version on the twin's B = 1 bundles of {n} steps (max "
+              f"|error| {err:g}), each step's observation equal to the "
+              "plain frame")
+    clock.done("  host twin plain checks")
+    twin_runs(card, rk, tb, gb, "simple_layout", launches)
+    clock.done("  host twin runs")
+    env = twin_card_vs_cpu(card, tb, "simple_layout", launches, rk)
+    twin_card_vs_cpu(card, tb, "classes", launches, rk).close()
+    clock.done("  host twin card vs CPU")
+    autosys_driveback(card, env)
+    overview_vs_cpu(env)
+    env.close()
+    clock.done("  host drive-back and overview")
+    examples_in_process(card, rk, launches)
+    clock.done("  host examples")
+    for name in ("masks", "rank"):
+        check(launches.get(name, 0) > 0, f"host tools: the {name} kernel "
+              "was not launched")
     return launches
 
 

@@ -133,7 +133,16 @@ def test_port_imports_without_jax():
     for name in ("models.tinycar_net", "train.evaluate", "ops.rasterize",
                  "ops.rasterize_kernels", "ops.cv2_stroke", "env",
                  "convert", "gym_env", "wrapper.reward",
-                 "wrapper.termination", "wrapper.observation"):
+                 "wrapper.termination", "wrapper.observation", "viz",
+                 "mapgen", "mapbuilder", "mapbuilder.__main__",
+                 "mapbuilder.layer_builder", "real_world",
+                 "real_world.base", "real_world.env",
+                 "real_world.tracking",
+                 "real_world.environments.env_loopback",
+                 "real_world.environments.env_autosys",
+                 "benchmarks.twin_bench", "examples.random_control",
+                 "examples.render_map", "examples.stanley_control",
+                 "examples.train_td3", "examples.benchmark_tinycar_net"):
         assert f"tinycarlo_torch.{name}" in modules
     config = bench_config((32, 48))
     code = (
@@ -178,11 +187,16 @@ def test_port_sources_import_no_jax():
 
 
 def test_entry_points_default_to_cuda():
-    """Entry points default to "cuda" and raise without a GPU instead of
-    carrying on on the CPU."""
+    """Entry points -- the env params, the benchmarks, the Gymnasium shim,
+    the digital twin and the examples -- default to "cuda" and raise
+    without a GPU instead of carrying on on the CPU."""
     from tinycarlo_torch import env as fenv
     from tinycarlo_torch.benchmarks import rasterize_bench
+    from tinycarlo_torch.examples import (benchmark_tinycar_net,
+                                          random_control, render_map,
+                                          stanley_control, train_td3)
     from tinycarlo_torch.gym_env import TinyCarloEnv
+    from tinycarlo_torch.real_world import TinyCarloRealWorldEnv
     from tinycarlo_torch.utils.helper import resolve_device
 
     assert resolve_device("cpu") == torch.device("cpu")
@@ -195,6 +209,15 @@ def test_entry_points_default_to_cuda():
             rasterize_bench.main(["full"])
         with pytest.raises(RuntimeError, match="CUDA"):
             TinyCarloEnv(config=bench_config())
+        with pytest.raises(RuntimeError, match="CUDA"):
+            TinyCarloRealWorldEnv(config=dict(
+                bench_config(), sim={"real_world_env": "loopback"}))
+        for example in (random_control, render_map, stanley_control,
+                        train_td3, benchmark_tinycar_net):
+            with pytest.raises(RuntimeError, match="CUDA"):
+                example.main([])
+        with pytest.raises(RuntimeError, match="CUDA"):
+            stanley_control.main(["--batch", "2", "--steps", "1"])
 
 
 def _config_sources():

@@ -723,6 +723,30 @@ def test_gym_launches_equal_renders(name):
     assert r["launches"] == r["want_launches"] == want
 
 
+@pytest.mark.parametrize("name", ["simple_layout", "classes"])
+def test_twin_graph_matches_eager(name):
+    """The digital twin on the card (loopback backend): 20 replayed steps
+    of each twin_bench config return what 20 eager steps return, bit for
+    bit."""
+    _require_cuda()
+    from tinycarlo_torch.benchmarks import twin_bench as tb
+
+    assert tb.graph_matches_eager(tb.CONFIGS[name], steps=20) == 20
+
+
+def test_twin_launches_equal_renders():
+    """The twin's rank-kernel launches: one a render that ran eagerly (the
+    reset and the first step) and one for the capture; replays pass no
+    wrapper."""
+    _require_cuda()
+    from tinycarlo_torch.benchmarks import twin_bench as tb
+
+    r = tb.measure("simple_layout", "graph", steps=30)
+    assert r["replays"] == 30 and r["captures"] == 1
+    assert r["launches"] == r["want_launches"]
+    assert r["launches"]["rank"] == r["renders"] - 30 + 1
+
+
 def test_gym_update_params_reaches_the_graph():
     """New camera parameters, written into the captured tensors, change
     the replayed step's frame as they change the eager step's."""

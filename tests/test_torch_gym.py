@@ -344,9 +344,21 @@ def test_debug_staged_step(monkeypatch, capsys):
         _assert_info(got[4], want[4], f"step {i}")
 
 
-def test_human_render_and_device():
-    with pytest.raises(NotImplementedError, match="M17"):
-        PortEnv(render_mode="human", config=_config(), device="cpu")
+def test_human_render_and_device(monkeypatch):
+    """render_mode="human" builds and shows its two windows (cv2's window
+    calls stubbed: no display here); an unknown mode raises."""
+    import cv2
+
+    shown = []
+    monkeypatch.setattr(cv2, "namedWindow", lambda name, flags: None)
+    monkeypatch.setattr(cv2, "imshow",
+                        lambda name, image: shown.append(name))
+    monkeypatch.setattr(cv2, "waitKey", lambda ms: -1)
+    monkeypatch.setattr(cv2, "destroyWindow", lambda name: None)
+    env = PortEnv(render_mode="human", config=_config("classes", (32, 40)),
+                  device="cpu")
+    assert env.render() is None and shown == ["Map", "Camera"]
+    env.close()
     with pytest.raises(ValueError):
         PortEnv(render_mode="nope", config=_config(), device="cpu")
 

@@ -24,7 +24,13 @@ its counterpart at the same path. The port runs on an NVIDIA GPU:
 - the Gymnasium entry point (gym_env.TinyCarloEnv, registered as
   "tinycarlo-torch-v2" when gymnasium imports; the JAX package holds
   "tinycarlo-v2"), whose step is one replayed CUDA graph on the card, and
-  the reference's wrapper classes (wrapper/).
+  the reference's wrapper classes (wrapper/);
+- the host tools: the digital twin around a hardware car
+  (real_world.TinyCarloRealWorldEnv, "tinycarlo-torch-realworld-v2", its
+  step one replayed CUDA graph on the card; the loopback and autosys
+  backends), the overview map (viz, the shim's human render mode), map
+  generation (mapgen), the map-authoring GUI (mapbuilder) and the
+  examples (examples/).
 
 Entry points take `device=` and default to "cuda"; they raise when no GPU
 is present instead of carrying on on the CPU. Tests pass `device="cpu"`,
@@ -66,3 +72,7 @@ else:
     if "tinycarlo-torch-v2" not in registry:
         register(id="tinycarlo-torch-v2",
                  entry_point="tinycarlo_torch.gym_env:TinyCarloEnv")
+    if "tinycarlo-torch-realworld-v2" not in registry:
+        register(id="tinycarlo-torch-realworld-v2",
+                 entry_point="tinycarlo_torch.real_world.env:"
+                             "TinyCarloRealWorldEnv")

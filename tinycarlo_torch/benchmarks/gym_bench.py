@@ -109,21 +109,28 @@ def make_env(config, mode: str) -> TinyCarloEnv:
 
 
 def measure(name: str, mode: str, steps: int = STEPS, config=None) -> Dict:
-    """`run` on a new shim of config `name` (or of `config`) in `mode`,
-    the render kernels' launch counts set to 0 after its construction and
-    read after the run, beside the launches expected (see the module's
-    docstring)."""
+    """`run` on a new shim of config `name` (or of `config`) in `mode`
+    (`counted_run`)."""
     env = make_env(CONFIGS[name] if config is None else config, mode)
+    return counted_run(env, lambda: run(env, steps), config=name, mode=mode,
+                       steps=steps)
+
+
+def counted_run(env, run_fn, **labels) -> Dict:
+    """run_fn()'s result on a new shim or twin `env`, the render kernels'
+    launch counts set to 0 before it and read after it, beside the
+    launches expected (see the module's docstring), with `labels`; closes
+    `env`."""
     for kernel in RENDER_KERNELS:
         kernel.launches = 0
-    result = run(env, steps)
+    result = run_fn()
     captures = len(env._graphs)
     want = {k.NAME: 0 for k in RENDER_KERNELS}
     if env.device.type == "cuda":
         want[render_kernel(env.params).NAME] = (
             result["renders"] - env.replays + captures)
-    result.update(config=name, mode=mode, steps=steps,
-                  format=env.observation_space_format, replays=env.replays,
+    result.update(**labels, format=env.observation_space_format,
+                  replays=env.replays,
                   captures=captures,
                   launches={k.NAME: k.launches for k in RENDER_KERNELS},
                   want_launches=want)

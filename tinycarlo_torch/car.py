@@ -46,6 +46,16 @@ def _front(position, rotation, wheelbase):
     )
 
 
+def update_position_front(state: CarState, cfg: CarConfig) -> CarState:
+    """The front axle's middle from the rear axle's position and the yaw,
+    batched. tinycarlo_tpu/car.py:78-82 (reference: tinycarlo/car.py:
+    167-168)."""
+    return replace(
+        state,
+        position_front=_front(state.position, state.rotation, cfg.wheelbase),
+    )
+
+
 def car_reset(
     map_data: MapData, cfg: CarConfig, spawn_row: torch.Tensor
 ) -> CarState:

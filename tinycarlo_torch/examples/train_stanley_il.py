@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from tinycarlo_torch import env as fenv
+from tinycarlo_torch.examples import _common as common
 from tinycarlo_torch.examples._common import default_config
 from tinycarlo_torch.train import evaluate as evaluate_mod
 from tinycarlo_torch.train.evaluate import combo_policy
@@ -132,7 +133,7 @@ def main(argv=None) -> Dict:
     argv = sys.argv[1:] if argv is None else list(argv)
 
     def arg(flag, default, cast=int):
-        return cast(argv[argv.index(flag) + 1]) if flag in argv else default
+        return common.arg(argv, flag, default, cast)
 
     device = resolve_device(arg("--device", "cuda", str))
     n_samples = arg("--samples", 25_000)
@@ -236,13 +237,7 @@ def main(argv=None) -> Dict:
             steps=arg("--eval-steps", 1000),
             episodes=arg("--eval-episodes", 5))
         out["eval"][maneuver] = r
-        print(
-            f"Maneuver {maneuver} -> Total reward: {r['total_reward']:.2f} | "
-            f"CTE: {r['cte_avg']:.4f} m/step var: {r['cte_var']:.4f} | "
-            f"Heading Error: {r['heading_error_avg']:.4f} rad/step var "
-            f"{r['heading_error_var']:.4f} | Terminations: "
-            f"{r['terminations']:3d} | perf: {r['steps_per_s']:.2f} steps/s"
-        )
+        common.print_eval(maneuver, r)
     return out
 
 

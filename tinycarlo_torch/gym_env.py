@@ -25,8 +25,10 @@ replays). Anything that changes the state outside a step (`reset`,
 
 The eager path (`device="cpu"`, and `DEBUG=1` / `DEBUG=2`, whose staged
 step prints the reference's timing lines) runs the same step body; a
-replay equals it bit for bit. `render_mode="human"` (cv2 windows and the
-overview map) is not ported yet and raises.
+replay equals it bit for bit. `render_mode="human"` shows the overview map
+(`viz.render_overview`) and the camera's rgb frame in two cv2 windows,
+"Map" and "Camera", after every reset and step, paced by `cv2.waitKey` to
+the sim's period (tinycarlo_tpu/gym_env.py:476-512); it needs a display.
 
 For throughput use `tinycarlo_torch.vector`, which steps thousands of
 envs at once.
@@ -177,12 +179,6 @@ class TinyCarloEnv(Env):
                 render_mode not in self.metadata["render_modes"]):
             raise ValueError(f"render_mode {render_mode!r} is not one of "
                              f"{self.metadata['render_modes']}")
-        if render_mode == "human":
-            raise NotImplementedError(
-                'render_mode="human" needs the overview renderer (viz), '
-                "which the port does not have yet (ROADMAP.md M17); use "
-                'render_mode="rgb_array"'
-            )
         cfg, config_path = load_config(config)
         self.config_path = config_path
         self.config = config if isinstance(config, dict) else None
@@ -207,6 +203,10 @@ class TinyCarloEnv(Env):
         self.no_observation = False
         self.wrapped = False  # set True by wrappers; disables default shaping
         self.loop_time: float = 1.0
+        # the human mode's cv2 windows and the overview's static map
+        self._window: Optional[str] = None
+        self._window_camera: Optional[str] = None
+        self._overview_cache: Optional[np.ndarray] = None
 
         self.state: Optional[fenv.EnvState] = None
         self.car = _CarView(self)
@@ -406,7 +406,10 @@ class TinyCarloEnv(Env):
         ))
         observation = self._get_obs()
         packed, layout = _pack(fenv._info(self.params, self.state))
-        return observation, self._convert_info(self._to_host(packed, layout))
+        info = self._to_host(packed, layout)
+        if self.render_mode == "human":
+            self._render_frame()
+        return observation, self._convert_info(info)
 
     def step(self, action: Dict[str, Any]):
         st = time.perf_counter()
@@ -429,6 +432,8 @@ class TinyCarloEnv(Env):
             reward, terminated, truncated = (
                 out.pop("reward"), out.pop("terminated"), out.pop("truncated"))
             info = out
+        if self.render_mode == "human":
+            self._render_frame()
         self.loop_time = time.perf_counter() - st
         return (
             observation,
@@ -530,11 +535,50 @@ class TinyCarloEnv(Env):
 
     def render(self) -> Optional[np.ndarray]:
         if self.render_mode == "rgb_array":
-            return self._camera_rgb()
+            return self._render_frame()
         return None
 
     def _camera_rgb(self) -> np.ndarray:
         return self._render_obs(fmt="rgb")
 
+    def _render_frame(self) -> Optional[np.ndarray]:
+        """The camera's rgb frame; in human mode it is shown beside the
+        overview map instead, and cv2.waitKey waits out the rest of the
+        sim's period (tinycarlo_tpu/gym_env.py:476-503)."""
+        camera_view = self._camera_rgb()
+        if self.render_mode != "human":
+            return camera_view
+        import cv2
+
+        from tinycarlo_torch.viz import render_overview
+
+        if self._window is None:
+            self._window = "Map"
+            cv2.namedWindow(self._window, cv2.WINDOW_NORMAL)
+        if self._window_camera is None:
+            self._window_camera = "Camera"
+            cv2.namedWindow(self._window_camera, cv2.WINDOW_NORMAL)
+        overview, self._overview_cache = render_overview(
+            self.params,
+            self.state,
+            self.overview_pixel_per_meter,
+            render_node_names=self.render_node_names,
+            static_cache=self._overview_cache,
+        )
+        cv2.imshow(self._window, overview)
+        cv2.imshow(self._window_camera, camera_view)
+        waiting_time = self.T - self.loop_time
+        if waiting_time < 0.001 or not self.render_realtime:
+            waiting_time = 0.001
+        cv2.waitKey(int(waiting_time * 1000))
+        return None
+
     def close(self) -> None:
+        if self._window is not None or self._window_camera is not None:
+            import cv2
+
+            for window in (self._window, self._window_camera):
+                if window is not None:
+                    cv2.destroyWindow(window)
+            self._window = self._window_camera = None
         self._graphs.clear()
