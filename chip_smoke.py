@@ -108,10 +108,11 @@ any failed check:
    c. 8 envs x 20 combo-driven steps on the card and on the CPU port.
 11. exact serving: the same config with camera.stroke: exact, frames from
    the exact kernel's masks (the rank kernel is not launched):
-   a. benchmarks/policy_parity.py's protocol: maneuvers 0, 1, 2, 4
-      sequential episodes of 500 steps, one worker process per maneuver
-      (cut, and the cut printed, if a maneuver would take over ~90 s);
-      each cte_avg below 0.02 m;
+   a. benchmarks/policy_parity.py's protocol through its port's
+      `our_eval` (tinycarlo_torch.benchmarks.policy_parity): maneuvers 0,
+      1, 2, 4 sequential episodes of 500 steps, one worker process per
+      maneuver (cut, and the cut printed, if a maneuver would take over
+      ~90 s); each cte_avg below 0.02 m;
    b. 4096 episodes of 100 steps, 3 repeats: env-steps/s, launches equal
       to the renders, the device idle share;
    c. 8 envs x 20 combo-driven steps on the card and on the CPU port
@@ -239,11 +240,30 @@ any failed check:
    The masks and rank kernels' launches on these paths (each count set to
    0 before a path and read after it; the plain checks apart) go into
    their entries as `launches_host`.
-19. results: the `kernels` JSON line (K1-K10; the masks and rank kernels'
+19. measurement scripts (tinycarlo_torch.benchmarks):
+   a. BASELINE config 3 uncut (`baseline_configs.measure3`: knuffingen,
+      480x640, 512 envs, maneuver (i + env) % 4, 100-step chunks, a warm
+      chunk and 5 timed), classes (K1) and rank (K3): the JSON line, the
+      overflow count as measured, the render kernel launched once a warm-up
+      step and once at capture, the kernel bit-equal to its plain version
+      on the run's bundles after its chunks and timed alone, a trace of
+      TRACED replays with one render-kernel record a step (device ms, idle
+      share), the parts' ms (render, vector.step, the u-turn re-snap's
+      scan), 8 replayed steps equal bit for bit to 8 eager steps with
+      u-turn entries and respawns, and 8 envs x 10 steps at 480x640 on
+      the card against the CPU port (positions within 1e-4 m, under 0.5%
+      of pixels differing);
+   b. at their full size: step_decomp (all seven modes), profile_step
+      (4096 envs, one masks record a step or it raises), profile_td3 (64
+      envs, uint8; the kernels, the device rate and the stages of an
+      eager chunk), exp_r4_rgb (all eight probes) and exp_r3c (unroll:
+      1-, 2- and 4-step graphs, each recording as many masks launches;
+      fill), each printed with its seconds.
+20. results: the `kernels` JSON line (K1-K10; the masks and rank kernels'
    entries also give their launches on the IL phase's paths,
-   `launches_il`, and on phase 18's, `launches_host`, and the masks, rank
-   and exact kernels' on phase 17's, `launches_sp`), the card line and,
-   last, the `ok` JSON line.
+   `launches_il`, on phase 18's, `launches_host`, and on config 3's
+   (19a), `launches_b3`, and the masks, rank and exact kernels' on phase
+   17's, `launches_sp`), the card line and, last, the `ok` JSON line.
 
 Every phase prints its seconds.
 
@@ -778,7 +798,19 @@ def main():
             entry["launches_host"] = host_launches[entry["name"]]
     clock.done("host tools")
 
-    # ---- 19. results --------------------------------------------------------
+    # ---- 19. the measurement scripts: BASELINE config 3, the profiles -------
+    b3_launches, b3_ms = measurement_scripts(card, rk, ras)
+    for entry in kernels:
+        if entry["name"] in ("masks", "rank"):
+            entry["launches_b3"] = b3_launches.get(entry["name"], 0)
+    for kernel_name in ("masks", "rank"):
+        check(b3_launches.get(kernel_name, 0) > 0, f"config 3: the "
+              f"{kernel_name} kernel was not launched")
+    print("config 3 kernels at 480x640 on the run's bundles (ms alone, ms "
+          "device in the replayed step): " + json.dumps(b3_ms))
+    clock.done("measurement scripts")
+
+    # ---- 20. results --------------------------------------------------------
     print(f"chip_smoke: {time.perf_counter() - start:.1f} s after the "
           f"device check")
     print(json.dumps({"kernels": kernels}))
@@ -1731,8 +1763,11 @@ def device_profile(fn, calls=5):
             fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - start) / calls * 1e3
+    # profiler ranges (vector.step's "vector.render") are no kernels: on
+    # the device timeline a range spans its kernels and the gaps between
     kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
     busy_us = sum(e.self_device_time_total for e in kernels)
     if busy_us <= 0:
         return None, [], {}, wall_ms
@@ -1898,7 +1933,8 @@ def compare_with_cpu(fenv, vector, stanley_steering, params_gpu):
 
 
 def serving_setup(stroke):
-    """(params, combo policy) of the example's config with `stroke`."""
+    """(params, combo policy, combo) of the example's config with
+    `stroke`."""
     from tinycarlo_torch import env as fenv
     from tinycarlo_torch.models.tinycar_net import load_pretrained
     from tinycarlo_torch.train.evaluate import combo_policy
@@ -1908,7 +1944,7 @@ def serving_setup(stroke):
           "the example's config should render rgb")
     model = load_pretrained(fenv.observation_shape(params))
     check(model is not None, "no bundled combo for the example's frames")
-    return params, combo_policy(model)
+    return params, combo_policy(model), model
 
 
 def protocol_worker_init():
@@ -1924,21 +1960,28 @@ _WORKER_SETUP = {}
 
 def protocol_maneuver(stroke, maneuver, steps, episodes, sequential):
     """One maneuver of a serving protocol, in a worker process: evaluate's
-    metrics at SERVE_SEED (without the positions) and, under "launches",
-    each render kernel's launch count in this call."""
+    metrics (without the positions) and, under "launches", each render
+    kernel's launch count in this call. The example's protocol runs at
+    SERVE_SEED; the sequential one is policy_parity's, through its
+    module's `our_eval` (evaluate's default seed, as the script's)."""
+    from tinycarlo_torch.benchmarks import policy_parity
     from tinycarlo_torch.ops import rasterize_kernels as rk
     from tinycarlo_torch.train.evaluate import evaluate
 
     if stroke not in _WORKER_SETUP:
         _WORKER_SETUP[stroke] = serving_setup(stroke)
-    params, act = _WORKER_SETUP[stroke]
+    params, act, model = _WORKER_SETUP[stroke]
     kernels = (rk.masks_kernel, rk.rank_kernel, rk.exact_kernel)
     for k in kernels:
         k.launches = 0
     stats = {}
-    r = evaluate(act, params, maneuver, None, seed=SERVE_SEED, steps=steps,
-                 episodes=episodes, sequential=sequential, stats=stats)
-    del r["positions"]
+    if sequential:
+        r = policy_parity.our_eval(model, maneuver, steps, episodes,
+                                   stroke, stats=stats)
+    else:
+        r = evaluate(act, params, maneuver, None, seed=SERVE_SEED,
+                     steps=steps, episodes=episodes, stats=stats)
+        del r["positions"]
     r["launches"] = {k.NAME: k.launches for k in kernels}
     r["graph"] = {"replays": 0, "captures": 0, **stats}
     return r
@@ -1946,7 +1989,8 @@ def protocol_maneuver(stroke, maneuver, steps, episodes, sequential):
 
 def serving_protocol(pool, params, act, kernel, steps, episodes, budget_s,
                      sequential):
-    """Maneuvers 0, 1, 2 through `evaluate` at seed 10, one per process of
+    """Maneuvers 0, 1, 2 through `evaluate` (`protocol_maneuver`: seed 10,
+    or policy_parity's `our_eval` when sequential), one per process of
     `pool` at the same time (each evaluate call seeds its own generator,
     so the metrics are those of three calls in a row): each cte_avg finite
     and below CTE_LIMIT, `kernel` launched once per eager render and
@@ -2097,7 +2141,7 @@ def serve(card, rank_err, pool):
     from tinycarlo_torch.ops import rasterize as ras
     from tinycarlo_torch.ops import rasterize_kernels as rk
 
-    params, act = serving_setup("fast")
+    params, act, _ = serving_setup("fast")
     serving_protocol(pool, params, act, rk.rank_kernel, SERVE_STEPS,
                      SERVE_EPISODES, SERVE_BUDGET_S, sequential=False)
     rate, peak_gb = serving_batch(card, params, act, rk.rank_kernel,
@@ -2168,7 +2212,7 @@ def serve_exact(card, pool):
     from tinycarlo_torch import vector
     from tinycarlo_torch.ops import rasterize_kernels as rk
 
-    params, act = serving_setup("exact")
+    params, act, _ = serving_setup("exact")
     serving_protocol(pool, params, act, rk.exact_kernel, EXACT_SERVE_STEPS,
                      EXACT_SERVE_EPISODES, EXACT_SERVE_BUDGET_S,
                      sequential=True)
@@ -2836,7 +2880,7 @@ def td3_evaluate(params):
     from tinycarlo_torch.train.evaluate import evaluate
     from tinycarlo_torch.utils import graphs
 
-    params_s, act = serving_setup("fast")
+    params_s, act, _ = serving_setup("fast")
     stats_g, stats_e = {}, {}
     graphs.deterministic(True)
     try:
@@ -3863,6 +3907,201 @@ def host_tools_phase(card, rk, ras):
         check(launches.get(name, 0) > 0, f"host tools: the {name} kernel "
               "was not launched")
     return launches
+
+
+# ---- 19. the measurement scripts ----------------------------------------------
+# config 3's checks: replays against eager steps (respawns every 3 steps),
+# and the card against the CPU port, at the full frame
+B3_SAME_STEPS, B3_SAME_EPISODE = 8, 3
+B3_CPU_ENVS, B3_CPU_STEPS, B3_CPU_EPISODE = 8, 10, 4
+
+
+def config3_card_vs_cpu(bc, fmt):
+    """B3_CPU_ENVS envs x B3_CPU_STEPS steps of config 3's body at 480x640
+    on the card and on the CPU port, with the same spawn and respawn rows
+    (episodes of B3_CPU_EPISODE steps): positions within 1e-4 m, under
+    0.5% of the last frames' pixels differing. Returns (max position
+    error, share of pixels differing)."""
+    import torch
+
+    n = B3_CPU_ENVS
+    out = []
+    for dev in ("cuda", "cpu"):
+        params = bc.make_params3(dev, fmt)
+        rows = (torch.arange(n) % params.map_data.spawns.count).to(dev)
+        body = bc.make_body3(params, n, B3_CPU_EPISODE)
+        state = bc.start3(params, n, spawn_rows=rows)
+        for _ in range(B3_CPU_STEPS):
+            *state, obs = body(*state, respawn_rows=rows)
+        out.append((state[0].env.car.position.cpu(), obs.cpu()))
+    err = (out[0][0] - out[1][0]).abs().max().item()
+    frac = (out[0][1] != out[1][1]).float().mean().item()
+    check(err < 1e-4, f"config 3 {fmt}: card and CPU positions differ by "
+          f"{err}")
+    check(frac < 0.005, f"config 3 {fmt}: card and CPU frames differ on "
+          f"{frac:.4%} of pixels")
+    return err, frac
+
+
+def config3_phase(card, rk, ras, fmt, launches):
+    """Phase 19a for one observation format: BASELINE config 3 uncut
+    through tinycarlo_torch.benchmarks.baseline_configs. Returns the
+    render kernel's alone and in-trace device ms."""
+    from tinycarlo_torch import env as fenv
+    from tinycarlo_torch.benchmarks import baseline_configs as bc
+
+    clock = PhaseClock()
+    result, got = counted(rk, lambda: bc.measure3(fmt=fmt))
+    add_launches(launches, got)
+    params = result["params"]
+    kernel = fenv.render_kernel(params)
+    want = bc.WARMUP + 1
+    check(got[kernel.NAME] == want and sum(got.values()) == want,
+          f"config 3 {fmt}: launches {got}, not {bc.WARMUP} eager steps and "
+          f"one capture of the {kernel.NAME} kernel")
+    print("config 3: " + json.dumps(bc.line3(result, bc.N_ENVS3, fmt, card)))
+    print(f"config 3 {fmt}: {bc.N_ENVS3} envs x {bc.CHUNK3} replays a chunk, "
+          f"chunks in order (env-steps/s): "
+          + " ".join(f"{r:.1f}" for r in result["rates"])
+          + f"; max_visible_overflow_at_reset {result['overflow']} (as "
+          f"measured); {kernel.NAME} launches {got[kernel.NAME]} "
+          f"({bc.WARMUP} eager steps + the capture)")
+    clock.done(f"  config 3 {fmt} run")
+
+    # the kernel on the run's own bundles, after its chunks
+    md = params.map_data
+    res = tuple(params.cfg.camera.resolution)
+    t = params.cfg.camera.line_thickness
+    vstate = result["state"][0]
+    bundle = bench_bundle(fenv, rk, params, vstate.env)
+    if kernel is rk.rank_kernel:
+        err = rank_vs_plain(rk, ras, bundle, md.n_layers, res, t)
+    else:
+        err = kernel_vs_plain(rk.masks_kernel, rk.rasterize_masks_env_plain,
+                              bundle, md.n_layers, res, t)
+    out = kernel(bundle, md.n_layers, res, t)
+    alone = cuda_ms(lambda: kernel(bundle, md.n_layers, res, t), repeats=20)
+    floor_ms = cuda_ms(lambda: out.fill_(0), repeats=20)
+    n_bytes, n_ops = bundle_bytes_and_ops(rk, bundle, res, t, out.numel())
+    bound_ms, by, _, _ = bound(n_bytes, n_ops, PEAK_F32_PER_S)
+    print(f"config 3 {fmt}: the {kernel.NAME} kernel equal to its plain "
+          f"version on the run's {bc.N_ENVS3}-env 480x640 bundle (max "
+          f"|error| {err:g}); alone {alone:.4f} ms (CUDA events, median of "
+          f"20); store floor (fill_ of its {out.numel() / 1e6:.1f} MB) "
+          f"{floor_ms:.4f} ms; bound {n_bytes / 1e6:.1f} MB, "
+          f"{n_ops / 1e9:.2f} GOP -> {bound_ms:.4f} ms ({by}) on {card}")
+    del out
+
+    # a trace of TRACED replays
+    busy_ms, top, by_name, traced_ms = device_profile(result["graph"].replay,
+                                                      calls=TRACED)
+    kernel_ms = kernel_device_ms(by_name, f"{kernel.NAME}_kernel")
+    check(busy_ms is not None and kernel_ms is not None,
+          f"config 3 {fmt}: a trace of {TRACED} replays does not hold one "
+          f"{kernel.NAME} kernel record a step")
+    print(f"config 3 {fmt} replayed step, traced ({TRACED} steps) on {card}: "
+          f"wall {traced_ms:.4f} ms, device busy {busy_ms:.4f} ms, idle "
+          f"share {1 - busy_ms / traced_ms:.4f}, "
+          f"{sum(c for _, c in by_name.values()):g} kernel records a step, "
+          f"{kernel.NAME} kernel {kernel_ms:.4f} ms device")
+    for key, ms, count in top[:4]:
+        print(f"  {ms:.4f} ms/step x{count}: {key}")
+    parts = bc.stage_ms3(params, vstate)
+    print(f"config 3 {fmt} parts at {bc.N_ENVS3} envs (replayed graphs, "
+          f"CUDA events): render {parts['render']:.4f} ms, vector.step "
+          f"without render {parts['step']:.4f} ms, of it the u-turn "
+          f"re-snap scan {parts['uturn_resnap']:.4f} ms")
+    del result, bundle
+    clock.done(f"  config 3 {fmt} checks and trace")
+
+    same, got = counted(rk, lambda: bc.graph_matches_eager3(
+        bc.make_params3("cuda", fmt), bc.N_ENVS3, B3_SAME_STEPS,
+        B3_SAME_EPISODE))
+    add_launches(launches, got)
+    check(same["equal"], f"config 3 {fmt}: {B3_SAME_STEPS} replayed steps "
+          "differ from eager steps")
+    check(same["uturn_entries"] > 0 and same["respawns"] > 0
+          and same["offsets"][0] == same["offsets"][1] > 0,
+          f"config 3 {fmt}: u-turn entries {same['uturn_entries']}, respawns "
+          f"{same['respawns']}, generator offsets {same['offsets']}")
+    print(f"config 3 {fmt}: {B3_SAME_STEPS} replayed steps equal to "
+          f"{B3_SAME_STEPS} eager steps bit for bit ({same['uturn_entries']} "
+          f"u-turn entries, {same['respawns']} respawns, generator offset "
+          f"{same['offsets'][1]} after both)")
+    (err, frac), got = counted(rk, lambda: config3_card_vs_cpu(bc, fmt))
+    add_launches(launches, got)
+    print(f"config 3 {fmt} cpu check: {B3_CPU_ENVS} envs x {B3_CPU_STEPS} "
+          f"steps at 480x640, positions within {err:.2e}, frames differ on "
+          f"{frac:.4%} of pixels")
+    clock.done(f"  config 3 {fmt} replays and card vs CPU")
+    return alone, kernel_ms
+
+
+def measurement_scripts(card, rk, ras):
+    """Phase 19: BASELINE config 3 in both formats (19a), then the other
+    measurement scripts at their full size (19b). Returns the render
+    kernels' launches on config 3's paths (each count set to 0 just
+    before a path and read just after; the plain checks and the parts'
+    timings apart) and K1's and K3's ms at 480x640 on the run's
+    bundles."""
+    from tinycarlo_torch.benchmarks import exp_r3c, exp_r4_rgb
+    from tinycarlo_torch.benchmarks import profile_step, profile_td3
+    from tinycarlo_torch.benchmarks import step_decomp
+
+    clock = PhaseClock()
+    launches, ms = {}, {}
+    for fmt in ("classes", "rank"):
+        ms[fmt] = config3_phase(card, rk, ras, fmt, launches)
+    clock.done("  config 3")
+
+    result = step_decomp.run(modes=step_decomp.MODES)
+    for r in result["modes"]:
+        print(f"step_decomp {r['mode']}: med {r['ms']:.4f} ms/step  (all: "
+              + " ".join(f"{t:.4f}" for t in r["all"]) + ")")
+    print("step_decomp: " + json.dumps(result))
+    clock.done("  step_decomp")
+
+    result = profile_step.run()
+    profile_step.print_profile(result)
+    print(f"profile_step: {result['records_per_step']:g} kernel records a "
+          f"step, {result['render_kernel']} records a step "
+          f"{result['render_kernel_records_per_step']:g}, idle share "
+          f"{result['idle_share']:.4f} (wall {result['wall_ms_per_step']:.4f}"
+          f" ms a traced step) on {card}")
+    print("profile_step: " + json.dumps(result))
+    clock.done("  profile_step")
+
+    result = profile_td3.run(n_envs=64, obs_dtype="uint8")
+    profile_step.print_profile(result, unit="loop step")
+    print(f"profile_td3: {result['env_steps_per_s_device']:.1f} env-steps/s "
+          f"from the device total, {result['records_per_step']:g} kernel "
+          f"records a step, idle share {result['idle_share']:.4f}; stages "
+          f"(device ms a step, an eager chunk): "
+          + json.dumps(result["stages_ms_eager"])
+          + f"; the eager chunk {result['eager_busy_ms_per_step']:.4f} ms "
+          f"busy, {result['eager_records_per_step']:g} records a step")
+    print("profile_td3: " + json.dumps(result))
+    clock.done("  profile_td3")
+
+    result = exp_r4_rgb.run()
+    for r in result["probes"]:
+        print(f"exp_r4_rgb {r['name']:<11}: {r['ms']:.4f} ms/step = "
+              f"{r['gb_s']:,.1f} GB/s (checksum {r['checksum']})")
+    print("exp_r4_rgb: " + json.dumps(result))
+    clock.done("  exp_r4_rgb")
+
+    result = exp_r3c.run()
+    for r in result["unroll"]:
+        check(r["launches"] == r["unroll"], f"exp_r3c: a {r['unroll']}-step "
+              f"graph recorded {r['launches']} masks launches")
+        print(f"exp_r3c unroll={r['unroll']}: {r['ms_step']:.4f} ms/step = "
+              f"{r['env_steps_per_s']:,.1f} env-steps/s")
+    for r in result["fill"]:
+        print(f"exp_r3c {r['name']}: {r['ms_write']:.4f} ms/write = "
+              f"{r['gb_s']:,.1f} GB/s")
+    print("exp_r3c: " + json.dumps(result))
+    clock.done("  exp_r3c")
+    return launches, ms
 
 
 if __name__ == "__main__":

@@ -1188,3 +1188,49 @@ def test_sp_render_two_ranks(tmp_path):
         out = torch.load(tmp_path / f"sp_{r}.pt", weights_only=False)
         for fmt, (equal, launches, lit) in out.items():
             assert equal and launches == 1 and lit > 0, (r, fmt)
+
+
+def test_config3_graph_matches_eager():
+    """BASELINE config 3 (knuffingen, 480x640) at 16 envs: 6 replays of
+    the captured step equal 6 eager steps bit for bit from one state,
+    index and generator seed, respawning every 3 steps; the carried step
+    index advances the maneuvers (u-turn entries in the run)."""
+    _require_cuda()
+    from tinycarlo_torch.benchmarks import baseline_configs as bc
+
+    for fmt in ("classes", "rank"):
+        r = bc.graph_matches_eager3(bc.make_params3("cuda", fmt), 16,
+                                    steps=6, max_episode_steps=3)
+        assert r["equal"], fmt
+        assert r["uturn_entries"] > 0 and r["respawns"] >= 16
+        assert r["offsets"][0] == r["offsets"][1] > 0
+
+
+def test_config3_measure_on_the_card():
+    """measure3 at 16 envs and 4-step chunks: the graph, one render launch
+    a warm-up step and one at capture, a checksum, the index back at the
+    chunk's length."""
+    _require_cuda()
+    from tinycarlo_torch.benchmarks import baseline_configs as bc
+
+    before = rk.masks_kernel.launches
+    r = bc.measure3(n_envs=16, chunk=4, fmt="classes")
+    assert r["graph"] is not None and r["checksum"] > 0
+    assert rk.masks_kernel.launches - before == bc.WARMUP + 1
+    assert int(r["state"][2]) == 4
+
+
+@pytest.mark.parametrize("mode", ["kin", "kininfo", "car", "proj", "comp",
+                                  "full", "bench"])
+def test_step_decomp_mode_captures(mode):
+    """Each step_decomp mode captures: the masks kernel launched once at
+    capture (and once a warm-up step) in the rendering modes, never in
+    the others; the replays give a checksum."""
+    _require_cuda()
+    from tinycarlo_torch.benchmarks import step_decomp as sd
+
+    before = rk.masks_kernel.launches
+    r = sd.run(modes=(mode,), n_envs=64, iters=2, repeats=1)
+    launched = rk.masks_kernel.launches - before
+    assert launched == (3 if mode in sd.RENDERING else 0)
+    assert r["modes"][0]["mode"] == mode and r["modes"][0]["ms"] > 0

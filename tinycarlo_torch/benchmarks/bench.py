@@ -156,33 +156,18 @@ def carried(vstate, info, checksum):
 
 
 def capture(params, body, vstate, info, checksum, warmup: int = WARMUP):
-    """One step of `body` captured as a CUDA graph over static buffers.
-
-    Runs `warmup` eager steps on a side stream, takes the resulting
-    state as the static buffers and captures one step that writes its
-    outputs back into them (the state's generator registered with the
-    graph). Returns (graph, (vstate, info, checksum)): the static state,
-    which every `graph.replay()` advances by one step. Raises unless the
-    render kernel was launched exactly once during the capture."""
-    carry = [vstate, info, checksum]
-
-    def eager():
-        carry[:] = body(*carry)[:3]
-
-    graphs.warm_up(eager, warmup)
-    vstate, info, checksum = carry
-    info = {"cte": info["cte"], "heading_error": info["heading_error"]}
-    static = carried(vstate, info, checksum)
-    graphs.check_distinct(static, "bench")
-
-    def step():
-        out = body(vstate, info, checksum)
-        for dst, src in zip(static, carried(*out[:3])):
-            dst.copy_(src)
-
-    graph = graphs.capture(step, fenv.render_kernel(params),
-                           generators=(vstate.generator,))
-    return graph, (vstate, info, checksum)
+    """One step of `body` captured as a CUDA graph over static buffers
+    (`graphs.capture_carried`): `warmup` eager steps on a side stream,
+    then one step captured over the resulting state (the state's
+    generator registered). Returns (graph, (vstate, info, checksum)): the
+    static state, which every `graph.replay()` advances by one step.
+    Raises unless the render kernel was launched exactly once during the
+    capture."""
+    graph, state = graphs.capture_carried(
+        lambda *s: body(*s)[:3], (vstate, info, checksum), carried,
+        fenv.render_kernel(params), generators=(vstate.generator,),
+        warmup=warmup, what="bench")
+    return graph, tuple(state)
 
 
 def graph_matches_eager(params, n_envs: int, steps: int,

@@ -57,6 +57,7 @@ from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
+from torch.profiler import record_function
 
 from tinycarlo_torch import env as fenv
 from tinycarlo_torch import vector
@@ -70,6 +71,11 @@ from tinycarlo_torch.wrapper.functional import WrapperStack
 
 # the initial OU sigma (train_td3.py:143)
 SIGMA0 = 0.4
+# a step's stages, as the profiler ranges `_step` opens around them
+# (benchmarks/profile_td3.py prices them); the uint8 observation's render
+# runs inside the env step, in vector.step's "vector.render" range
+STAGES = ("td3.policy", "td3.env_step", "td3.render", "td3.encoder",
+          "td3.replay_add", "td3.update")
 
 
 @dataclass(frozen=True)
@@ -244,10 +250,11 @@ def _step(state: LoopState, params, cfg: td3.TD3Config,
         respawn = drawn("respawn", lambda n: torch.randint(
             params.map_data.spawns.count, (n,),
             generator=s.vstate.generator, device=dev))
-    noise = (s.noise + cfg.noise_theta * (cfg.noise_mean - s.noise)
-             + s.sigma[:, None] * eps)
-    action = td3.select_action(s.td3_state, cfg, feat_seq, m_onehot, noise,
-                               loop_cfg.steering_shift)
+    with record_function("td3.policy"):
+        noise = (s.noise + cfg.noise_theta * (cfg.noise_mean - s.noise)
+                 + s.sigma[:, None] * eps)
+        action = td3.select_action(s.td3_state, cfg, feat_seq, m_onehot,
+                                   noise, loop_cfg.steering_shift)
     env_dtype = s.vstate.env.car.position.dtype
     env_action = {
         "car_control": torch.stack(
@@ -257,31 +264,35 @@ def _step(state: LoopState, params, cfg: td3.TD3Config,
     }
     float_obs = loop_cfg.obs_dtype is not None and not (
         stack is not None and stack.observation_fns)
-    vstate, obs, rew, term, trunc, info = vector.step(
-        params, s.vstate, env_action, stack=stack,
-        max_episode_steps=loop_cfg.max_episode_steps, render=not float_obs,
-        respawn_rows=respawn,
-    )
+    with record_function("td3.env_step"):
+        vstate, obs, rew, term, trunc, info = vector.step(
+            params, s.vstate, env_action, stack=stack,
+            max_episode_steps=loop_cfg.max_episode_steps,
+            render=not float_obs, respawn_rows=respawn,
+        )
     if float_obs:
         # 0/1 masks in the encoder's dtype straight from the kernel, of
         # the post-reset states vector.step would render
         render = (fenv.render_observation_batch if obs_render_fn is None
                   else obs_render_fn)
-        obs = render(params, vstate.env, out_dtype=loop_cfg.obs_dtype)
-    f = encoder_apply(obs).to(s.queue.dtype)
+        with record_function("td3.render"):
+            obs = render(params, vstate.env, out_dtype=loop_cfg.obs_dtype)
+    with record_function("td3.encoder"):
+        f = encoder_apply(obs).to(s.queue.dtype)
     queue = torch.cat([f[:, None], s.queue[:, :-1]], dim=1)
     rows = {"x": queue[:, 1:], "m": s.maneuver, "a": action,
             "r": rew[:, None].to(torch.float32), "x1": queue[:, :-1]}
     if dp is not None:
         rows = {k: dp.gather(v) for k, v in rows.items()}
-    rb.add_batch(s.buf, rows, s.generator,
-                 None if draw is None else draw["evict"])
+    with record_function("td3.replay_add"):
+        rb.add_batch(s.buf, rows, s.generator,
+                     None if draw is None else draw["evict"])
 
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     losses = {"critic1_loss": zero, "critic2_loss": zero,
               "actor_loss": zero}
-    if kind is not None:
-        for i, do_actor in enumerate(kind):
+    for i, do_actor in enumerate(kind or ()):
+        with record_function("td3.update"):
             batch = rb.sample(s.buf, cfg.batch_size, s.generator,
                               None if draw is None else draw["sample"][i])
             batch["m"] = one_hot(batch["m"], cfg.maneuver_dim, net_dtype)

@@ -5,8 +5,9 @@ headline bench (benchmarks/bench.py), `vector.rollout` and the TD3 loop
 The pattern: run the step eagerly on a side stream first (`warm_up`: every
 kernel launched and its launcher's one-time setup done outside the
 capture), then capture one step that reads the state's tensors and writes
-its new values back into them (`capture`), so that each `replay()`
-advances the state by one step. The generators the step draws from are
+its new values back into them (`capture`; `capture_carried` does both for
+a step that maps a state to its next), so that each `replay()` advances
+the state by one step. The generators the step draws from are
 registered with the graph, so each replay draws what an eager step would.
 A capture raises unless the render kernel was recorded exactly once: a
 graph that rendered nothing, or twice, is not the step it stands for.
@@ -97,6 +98,32 @@ def capture(step: Callable[[], None], kernel=None,
             f"the captured step launched the {kernel.NAME} kernel "
             f"{kernel.launches - before} times, not once")
     return graph
+
+
+def capture_carried(body: Callable, state, carried: Callable, kernel=None,
+                    generators: Iterable[torch.Generator] = (),
+                    warmup: int = 1, what: str = "step"):
+    """A step `body(*state) -> new state` captured over the state's own
+    tensors: `warmup` eager steps on a side stream, then one step
+    captured over the resulting state, writing its new values back into
+    the tensors `carried(*state)` lists (which must not share storage).
+    Returns (graph, state): the static state, which every `replay()`
+    advances by one step. `kernel` and `generators` as in `capture`."""
+    state = list(state)
+
+    def eager():
+        state[:] = body(*state)
+
+    warm_up(eager, warmup)
+    static = carried(*state)
+    check_distinct(static, what)
+
+    def step():
+        for dst, src in zip(static, carried(*body(*state))):
+            if dst is not src:
+                dst.copy_(src)
+
+    return capture(step, kernel, generators=generators), state
 
 
 def deterministic(on: bool = True) -> None:

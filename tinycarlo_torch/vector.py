@@ -26,6 +26,7 @@ from dataclasses import dataclass, fields, replace
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
+from torch.profiler import record_function
 
 from tinycarlo_torch import car as car_mod
 from tinycarlo_torch import env as fenv
@@ -145,7 +146,8 @@ def step(
     )
     obs = None
     if render:
-        obs = fenv.render_observation_batch(params, env_state)
+        with record_function("vector.render"):  # a profiler range
+            obs = fenv.render_observation_batch(params, env_state)
         if stack.observation_fns:  # tinycarlo_tpu/vector.py:147-150
             obs = stack.apply_observation(state.generator, obs)
     return state, obs, reward, terminated, truncated, info
