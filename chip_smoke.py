@@ -259,10 +259,28 @@ any failed check:
       eager chunk), exp_r4_rgb (all eight probes) and exp_r3c (unroll:
       1-, 2- and 4-step graphs, each recording as many masks launches;
       fill), each printed with its seconds.
-20. results: the `kernels` JSON line (K1-K10; the masks and rank kernels'
+20. training to a policy, through the examples' main() (the JAX
+   package's documented runs, docs/TRAINING.md):
+   a. the round-5 IL run uncut (train_stanley_il --samples 30000 --steps
+      15000 --chunk-steps 512 --balance --m2x 2 --no-dr; the yaml, rgb
+      128x160, 16 envs), its dataset and model in a temporary directory:
+      the per-maneuver split equal to the JAX run's [8192, 8192, 13616],
+      samples/s, train steps/s, and the 3 x 5 x 1000-step evaluation
+      beside the JAX run's; each cte_avg below 0.02 m;
+   b. the 1024-env TD3 time-to-policy command (train_td3 --envs 1024
+      --steps 100 --updates 4 --episodes 60) over (a)'s combo, cut to
+      TRAIN_CHUNKS chunks: the IL-trained combo loaded, the replay full
+      (100 000) after the first chunk, finite critic and actor losses,
+      every env's sigma equal to 0.4 * max(0, 1 - e / 60) at its episode
+      count e, each chunk's env-steps/s, the graphs by kind with their
+      replays, and a 5 x 200-step evaluation of maneuver 0 (printed).
+   The rank kernel's launches on (a) and (b) (its count set to 0 before
+   each and read after) go into its entry as `launches_train`.
+21. results: the `kernels` JSON line (K1-K10; the masks and rank kernels'
    entries also give their launches on the IL phase's paths,
    `launches_il`, on phase 18's, `launches_host`, and on config 3's
-   (19a), `launches_b3`, and the masks, rank and exact kernels' on phase
+   (19a), `launches_b3`, the rank kernel's on phase 20's,
+   `launches_train`, and the masks, rank and exact kernels' on phase
    17's, `launches_sp`), the card line and, last, the `ok` JSON line.
 
 Every phase prints its seconds.
@@ -810,7 +828,16 @@ def main():
           "device in the replayed step): " + json.dumps(b3_ms))
     clock.done("measurement scripts")
 
-    # ---- 20. results --------------------------------------------------------
+    # ---- 20. training to a policy: the IL run, the TD3 command cut ---------
+    train_launches = training_phase(card, rk)
+    for entry in kernels:
+        if entry["name"] == "rank":
+            entry["launches_train"] = train_launches["rank"]
+    check(train_launches["rank"] > 0, "training: the rank kernel was not "
+          "launched")
+    clock.done("training to a policy")
+
+    # ---- 21. results --------------------------------------------------------
     print(f"chip_smoke: {time.perf_counter() - start:.1f} s after the "
           f"device check")
     print(json.dumps({"kernels": kernels}))
@@ -4102,6 +4129,140 @@ def measurement_scripts(card, rk, ras):
     print("exp_r3c: " + json.dumps(result))
     clock.done("  exp_r3c")
     return launches, ms
+
+
+# ---- 20. training to a policy ------------------------------------------------
+# the JAX package's round-5 IL run (docs/training_artifacts/il_r5_nodr_run.log),
+# uncut, and its split and evaluation (total reward, cte_avg, terminations)
+IL_ROUND5 = ["--samples", "30000", "--steps", "15000", "--chunk-steps", "512",
+             "--balance", "--m2x", "2", "--no-dr"]
+IL_ROUND5_SPLIT = [8192, 8192, 13616]
+IL_ROUND5_JAX = {0: (3926.19, 0.0064, 0), 1: (3472.32, 0.0092, 0),
+                 2: (3403.78, 0.0096, 0)}
+# the JAX package's 1024-env TD3 time-to-policy command (docs/TRAINING.md:
+# 251-264), cut in depth to TRAIN_CHUNKS chunks of 100 steps
+TRAIN_CHUNKS = 10
+TD3_POLICY = ["--envs", "1024", "--chunks", str(TRAIN_CHUNKS), "--steps",
+              "100", "--updates", "4", "--episodes", "60",
+              "--eval-steps", "200", "--eval-episodes", "5",
+              "--eval-maneuvers", "1"]
+TD3_POLICY_EPISODES, TD3_REPLAY = 60, 100_000
+
+
+def with_env(values, fn):
+    """fn() with the environment variables `values` set, restored after."""
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        return fn()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+
+
+def il_round5(card, rk, tmp, launches):
+    """Phase 20a: the round-5 IL run uncut through the example's main().
+    Returns the model's path."""
+    from tinycarlo_torch.examples import train_stanley_il
+
+    model = os.path.join(tmp, "combo.npz")
+    r, got = counted(rk, lambda: with_env(
+        {"IL_DATA": os.path.join(tmp, "data.npz"), "IL_MODEL": model},
+        lambda: train_stanley_il.main(IL_ROUND5)))
+    add_launches(launches, got)
+    check(r["split"] == IL_ROUND5_SPLIT, f"il round 5: split {r['split']}, "
+          f"the JAX run's {IL_ROUND5_SPLIT}")
+    print(f"il round 5 uncut: {r['samples']} samples (split {r['split']}, "
+          f"the JAX run's {IL_ROUND5_SPLIT}) at "
+          f"{r['collect_samples_per_s']:.1f} samples/s, "
+          f"{len(r['losses'])} train steps at {r['train_steps_per_s']:.1f} "
+          f"steps/s, last 500 steps' loss "
+          f"{statistics.fmean(r['losses'][-500:]):.6f}, peak device memory "
+          f"{r.get('peak_memory_gb', math.nan):.2f} GB; rank launches "
+          f"{got['rank']}; on "
+          f"{card}")
+    for m, e in r["eval"].items():
+        reward, cte, terms = IL_ROUND5_JAX[m]
+        print(f"il round 5 maneuver {m}: total reward "
+              f"{e['total_reward']:.2f} (JAX {reward}), cte_avg "
+              f"{e['cte_avg']:.4f} m (JAX {cte}), terminations "
+              f"{e['terminations']} (JAX {terms})")
+        check(e["cte_avg"] < CTE_LIMIT, f"il round 5 maneuver {m}: cte_avg "
+              f"{e['cte_avg']} >= {CTE_LIMIT}")
+    return model
+
+
+def td3_policy(card, rk, model, tmp, launches):
+    """Phase 20b: the 1024-env TD3 command over `model`, cut to
+    TRAIN_CHUNKS chunks, through the example's main()."""
+    import torch
+
+    from tinycarlo_torch.examples import train_td3
+    from tinycarlo_torch.train.td3_loop import SIGMA0
+
+    r, got = counted(rk, lambda: with_env(
+        {"IL_MODEL": model},
+        lambda: train_td3.main(TD3_POLICY + ["--out", tmp])))
+    add_launches(launches, got)
+    check(r["encoder"] == model, f"td3 policy: the encoder came from "
+          f"{r['encoder']}, not the IL run's {model}")
+    print(f"td3 policy: loaded IL-trained combo from {r['encoder']}")
+    check(r["filled"][0] == TD3_REPLAY, f"td3 policy: replay "
+          f"{r['filled'][0]} after the first chunk, not {TD3_REPLAY}")
+    losses = r["losses"]
+    check(len(losses["actor"]) > 0 and all(
+        math.isfinite(x) for v in losses.values() for x in v),
+        "td3 policy: a loss is not finite, or no actor update ran")
+    state = r["state"]
+    ep = state.ep_count
+    want = SIGMA0 * torch.clamp(
+        1.0 - ep.to(torch.float32) / TD3_POLICY_EPISODES, min=0.0)
+    check(torch.equal(state.sigma, want), "td3 policy: an env's sigma is "
+          "not 0.4 * max(0, 1 - e / 60) at its episode count")
+    print(f"td3 policy: replay {r['filled'][0]} after chunk 1; critic "
+          f"losses {losses['critic1'][-1]:.5f} / {losses['critic2'][-1]:.5f}"
+          f", actor {losses['actor'][-1]:.5f} (last), all finite; episodes "
+          f"a env {int(ep.min())}-{int(ep.max())}, sigma "
+          f"{float(state.sigma.min()):.4f}-{float(state.sigma.max()):.4f}, "
+          f"each the formula's")
+    print("td3 policy (1024 envs, rgb 128x160, 4 updates a step): "
+          + ", ".join(f"{x:.1f}" for x in r["env_steps_per_s"])
+          + f" env-steps/s a chunk (the first captures its graphs); rewards "
+          "a episode " + ", ".join(f"{x:.2f}" for x in r["rewards"])
+          + "; graphs: " + "; ".join(
+              f"{train_td3.kind_name(k)}, {n} replays"
+              for k, n in r["graphs"].items())
+          + f"; rank launches {got['rank']}; peak memory: the process's "
+          f"host {r['peak_memory']['end']['host_gb']:.2f} GB, the run's "
+          f"device {r['peak_memory']['end']['device_gb']:.2f} GB; on {card}")
+    e = r["eval"][0]
+    print(f"td3 policy evaluation (maneuver 0, 5 x 200 steps, not gated): "
+          f"total reward {e['total_reward']:.2f}, cte_avg "
+          f"{e['cte_avg']:.4f} m, {e['terminations']} terminations")
+
+
+def training_phase(card, rk):
+    """Phase 20: the round-5 IL run uncut, then the time-to-policy TD3
+    command over its combo, cut in depth. Prints the seconds of each
+    part; returns the render kernels' launches on both."""
+    import tempfile
+
+    import torch
+
+    clock = PhaseClock()
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # the runs' peak device memory, not the earlier phases'
+        torch.cuda.reset_peak_memory_stats()
+        model = il_round5(card, rk, tmp, launches)
+        clock.done("  training: il round 5")
+        torch.cuda.reset_peak_memory_stats()
+        td3_policy(card, rk, model, tmp, launches)
+        clock.done("  training: td3 policy")
+    return launches
 
 
 if __name__ == "__main__":

@@ -67,11 +67,29 @@ def _depths(jp, jcs):
     ]
 
 
-@pytest.mark.parametrize("resolution,dtype", [
-    ((128, 160), "float32"), ((64, 48), "float32"), ((128, 160), "float64"),
+def _stacked_projection(cam, p, car_state, body, matmul):
+    """The packed edge axis through `cam.project_layers_batch`, its
+    stacked endpoints split back into (B, Ep) u0, v0, u1, v1 and draw."""
+    md = p.map_data
+    pose = matmul(p.camera.E, body(car_state.position, car_state.rotation))
+    p0, p1, draw = cam.project_layers_batch(
+        md.packed_nodes, md.packed_edges, md.packed_edge_mask, pose,
+        p.camera.K, tuple(p.cfg.camera.resolution), p.cfg.camera.max_range)
+    assert p0.shape == p1.shape == (*draw.shape, 2)
+    return (p0[:, 0, :, 0], p0[:, 0, :, 1], p1[:, 0, :, 0], p1[:, 0, :, 1],
+            draw[:, 0])
+
+
+@pytest.mark.parametrize("resolution,dtype,stacked", [
+    pytest.param((128, 160), "float32", False, id="resolution0-float32"),
+    pytest.param((64, 48), "float32", False, id="resolution1-float32"),
+    pytest.param((128, 160), "float64", False, id="resolution2-float64"),
+    pytest.param((128, 160), "float32", True, id="stacked-float32"),
+    pytest.param((128, 160), "float64", True, id="stacked-float64"),
 ])
-def test_packed_projection(resolution, dtype):
-    """float64: bit-identical. float32: XLA contracts the pose products
+def test_packed_projection(resolution, dtype, stacked):
+    """`stacked`: the same projection through `project_layers_batch`, the
+    (B, L, E, 2) point form, under the same rule. float64: bit-identical. float32: XLA contracts the pose products
     into fused multiply-adds where torch rounds each product, so the
     camera-frame coordinates differ in the last bit, and the perspective
     divide amplifies that by 1/|z|. Endpoints in front of the camera must
@@ -95,8 +113,16 @@ def test_packed_projection(resolution, dtype):
     pcs = pcar.car_reset(pp.map_data, pp.cfg.car, torch.from_numpy(rows))
     pcs.position = torch.from_numpy(np.array(jcs.position))
     pcs.rotation = torch.from_numpy(np.array(jcs.rotation))
-    want = jenv._project_packed_batch_soa(jp, jenv.EnvState(car=jcs, key=None))
-    got = penv._project_packed_batch_soa(pp, penv.EnvState(car=pcs))
+    if stacked:
+        want = _stacked_projection(
+            jcam, jp, jcs, jax.vmap(jcam.car_world_to_body_matrix),
+            lambda e, b: jnp.einsum("ij,bjk->bik", e, b))
+        got = _stacked_projection(pcam, pp, pcs,
+                                  pcam.car_world_to_body_matrix, torch.matmul)
+    else:
+        want = jenv._project_packed_batch_soa(
+            jp, jenv.EnvState(car=jcs, key=None))
+        got = penv._project_packed_batch_soa(pp, penv.EnvState(car=pcs))
     z0, z1 = _depths(jp, jcs)
     near0, near1 = (z0 >= 0) & (z1 < 0), (z0 < 0) & (z1 >= 0)
     h, w = resolution

@@ -6,6 +6,7 @@ The port's parity tests live in tests/test_torch_*.py. They run on the CPU
 with device="cpu": the same numpy-seeded inputs go through the JAX
 function and its port, and each test states its tolerance.
 """
+import contextlib
 import dataclasses
 import glob
 import os
@@ -44,6 +45,19 @@ BENCH_CONFIG = {
     },
     "map": {"json_path": SIMPLE_LAYOUT_MAP, "pixel_per_meter": 450},
 }
+
+
+@contextlib.contextmanager
+def torch_threads(n: int):
+    """torch's intra-op threads set to `n` inside, restored after: the
+    eager steps of a few envs run faster on one thread than on many, the
+    more so when several test workers share the cores."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(n)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(saved)
 
 
 def bench_config(resolution=(128, 160), thickness=2):

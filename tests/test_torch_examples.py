@@ -41,11 +41,36 @@ def test_train_td3_without_matplotlib(tmp_path, monkeypatch, capsys):
         "--out", str(tmp_path), "--eval-steps", "5", "--eval-episodes", "2",
         "--eval-maneuvers", "1", "--device", "cpu"])
     assert len(out["env_steps_per_s"]) == 1 and out["plot"] is None
-    assert "skipped the plot" in capsys.readouterr().out
+    printed = capsys.readouterr().out
+    assert "skipped the plot" in printed
+    assert out["encoder"] == "pretrained" and "loaded pretrained" in printed
+    assert len(out["chunk_seconds"]) == len(out["rewards"]) == 1
+    assert out["filled"] == [20] and out["peak_memory"]["end"]["host_gb"] > 0
+    assert out["wall_s"] >= out["train_wall_s"] > 0
     assert np.isfinite(out["eval"][0]["cte_avg"])
     for name in ("critic_loss", "actor_loss", "rew", "cte",
                  "actor_weight_changes"):
         assert (tmp_path / f"{name}_without_shift.csv").exists(), name
+
+
+def test_time_to_policy_on_the_jax_curve():
+    """The JAX package's 1024-env run (docs/training_artifacts/td3_1024/
+    rew_without_shift.csv) reached 300 a episode first in chunk 132; its
+    20-chunk means and last-20 mean, as docs/TRAINING.md reads them."""
+    from tinycarlo_torch.benchmarks import learning_curve
+
+    rewards = learning_curve.rewards(os.path.join(
+        os.path.dirname(__file__), "..", "docs", "training_artifacts",
+        "td3_1024", "rew_without_shift.csv"))
+    assert train_td3.time_to_policy(rewards, [0.5] * 200) == (132, 66.0)
+    assert train_td3.time_to_policy(rewards[:131], [1.0] * 131) == (None,
+                                                                    None)
+    r = learning_curve.summary(rewards)
+    assert r["chunks"] == 200 and r["first_chunk_at_policy"] == 132
+    assert [round(m, 1) for m in r["window_means"]] == [
+        24.6, 31.7, 53.3, 70.9, 104.5, 155.1, 225.3, 282.4, 360.2, 459.0]
+    assert round(r["last_window_mean"], 1) == 459.0
+    assert round(r["max"], 1) == 683.7
 
 
 @pytest.mark.parametrize("argv", [["--steps", "5"],

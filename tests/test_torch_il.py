@@ -46,7 +46,7 @@ import torch
 import yaml
 
 from tests.test_env import CONFIG
-from tests.test_torch_common import bench_config
+from tests.test_torch_common import bench_config, torch_threads
 from tests.test_torch_slice import _assert_obs, _respawn_rows
 from tinycarlo_torch import convert
 from tinycarlo_torch import env as penv
@@ -246,9 +246,11 @@ def test_train_step_matches_jax_float32():
                 err_msg=f"step {step}: {path}")
 
 
-def _dataset(rng, n):
+def _dataset(rng, n, m=None):
+    """n random samples; the per-maneuver pools as the JAX example builds
+    them (examples/train_stanley_il.py:113-124). `m`: the maneuvers."""
     x = rng.integers(0, 256, (n, *OBS_64)).astype(np.uint8)
-    m = rng.integers(0, 3, n).astype(np.int32)
+    m = rng.integers(0, 3, n).astype(np.int32) if m is None else m
     y = rng.uniform(-1, 1, (n, 1)).astype(np.float32)
     pools, pool_n = [], []
     mx = max((m == i).sum() for i in range(3))
@@ -282,11 +284,53 @@ def _jax_chunk_draws(key, data, batch, n_steps, balanced):
     return torch.from_numpy(np.stack(out).astype(np.int64))
 
 
-@pytest.mark.parametrize("balanced", [False, True])
+# the round-5 IL run's collection (docs/training_artifacts/il_r5_nodr_run.log:
+# --chunk-steps 512 --m2x 2 --no-dr, 30 000 samples of 16 envs) cut to 2
+# envs of 136 steps (above the default 128), the samples cut in proportion
+R5_ENVS, R5_STEPS, R5_CYCLE = 2, 136, (0, 1, 2, 2)
+R5_SAMPLES = 30_000 * R5_ENVS * R5_STEPS // (16 * 512)
+
+
+def _round5_maneuvers():
+    """M of both packages' collect_dataset under the round-5 flags (equal,
+    and split as the JAX run's [8192, 8192, 13616] scaled), and the
+    balanced pools of the port's example for it."""
+    from tinycarlo_torch.examples import train_stanley_il as ex
+
+    cfg = dict(CONFIG)
+    cfg["camera"] = dict(CONFIG["camera"], resolution=[32, 40])
+    jX, jM, jY = jil.collect_dataset(
+        jenv.make_env_params(cfg), jil.ILConfig(camera_dr=False),
+        jax.random.key(0), R5_SAMPLES, n_envs=R5_ENVS, chunk_steps=R5_STEPS,
+        maneuver_cycle=R5_CYCLE)
+    with torch_threads(1):
+        pX, pM, pY = pil.collect_dataset(
+            penv.make_env_params(cfg, device="cpu"),
+            pil.ILConfig(camera_dr=False), 0, R5_SAMPLES, n_envs=R5_ENVS,
+            chunk_steps=R5_STEPS, maneuver_cycle=R5_CYCLE)
+    assert pX.shape == jX.shape and pX.dtype == jX.dtype == np.uint8
+    assert pY.shape == jY.shape and np.isfinite(pY).all()
+    np.testing.assert_array_equal(pM, jM)
+    per_chunk = R5_ENVS * R5_STEPS // 2  # every 2nd frame
+    split = [2 * per_chunk, 2 * per_chunk, R5_SAMPLES - 4 * per_chunk]
+    assert [(pM == m).sum() for m in range(3)] == split
+    data = ex.make_data(pX, pM, pY, torch.device("cpu"), balance=True)
+    return pM, data["pools"].numpy(), data["pool_n"].numpy()
+
+
+@pytest.mark.parametrize("balanced", [False, True, "round5"])
 def test_train_chunk_matches_jax(balanced):
+    """The "round5" case: the balanced draws over the round-5 collection's
+    maneuvers (`_round5_maneuvers`), the pools the port's example builds
+    equal to the JAX example's."""
     jcfg = jil.ILConfig(batch_size=8)
     n_steps = 4
     data = _dataset(np.random.default_rng(3), 20)
+    if balanced == "round5":
+        m, pools, pool_n = _round5_maneuvers()
+        data = _dataset(np.random.default_rng(3), len(m), m.astype(np.int32))
+        np.testing.assert_array_equal(pools, data["pools"])
+        np.testing.assert_array_equal(pool_n, data["pool_n"])
     if not balanced:
         data = {k: data[k] for k in ("x", "m", "y")}
     jstate = _jax_state(jcfg, jnp.float32)
@@ -682,6 +726,7 @@ def test_example_main_and_its_repairs(tmp_path, monkeypatch):
     monkeypatch.delenv("IL_LOSS_CSV", raising=False)
     r = ex.main(argv)
     assert r["samples"] == 32 and r["collect_samples_per_s"] > 0
+    assert sum(r["split"]) == 32
     assert len(r["losses"]) == ex.CHUNK and np.isfinite(r["losses"]).all()
     assert set(r["eval"]) == {0, 1, 2}
     assert np.isfinite(r["eval"][0]["cte_avg"])

@@ -8,7 +8,10 @@ seq_len 3, batch 8, replay 64 (above B * T: no eviction), 6 steps, the
 stand-in encoder of tests/test_td3_loop.py. The JAX chunk's draws (OU
 normals, eviction and sample indices, new maneuvers) are recomputed in the
 test from its key schedule (td3_loop.py:145) and injected into the port;
-no env finishes in 6 steps, so no respawn is drawn. The nets run in
+no env finishes in 6 steps, so no respawn is drawn. A second case runs
+examples/train_td3.py's time-to-policy flags at this size (4 updates a
+step, the per-episode sigma past its plan, a replay the chunk wraps), its
+respawn rows drawn from the JAX envs' keys. The nets run in
 float32 in both (the JAX chunk's skip branch is float32): positions,
 rewards, cte and distances within 1e-6, features and stored rows within
 rtol 1e-5, losses within rtol 1e-4 (XLA's and torch's float32 sums differ
@@ -23,7 +26,9 @@ import numpy as np
 import pytest
 import torch
 
-from tests.test_torch_common import bench_config, to_numpy_tree
+from tests.test_torch_common import (bench_config, to_numpy_tree,
+                                     torch_threads)
+from tests.test_torch_slice import _respawn_rows
 from tinycarlo_torch import convert
 from tinycarlo_torch import env as penv
 from tinycarlo_torch.benchmarks import td3_bench
@@ -87,11 +92,26 @@ def _port_state(jstate, pp, cfg):
     )
 
 
-def _jax_draws(key, n_steps, size, batch, filled0, updates):
-    """The draws of the JAX chunk (td3_loop.py:145-277) from its key."""
+def _jax_draws(key, n_steps, size, batch, filled0, updates,
+               env_keys=None, spawns=0, done=None):
+    """The draws of the JAX chunk (td3_loop.py:145-277) from its key. With
+    the envs' keys, also the spawn rows vector.step's auto-reset draws
+    from them (vector.py:131-139), given the chunk's (T, B) `done`: each
+    step splits every env's key; a running env keeps the first half, a
+    respawned one the key its reset leaves (env.py:356-360)."""
     out = {k: [] for k in ("ou", "evict", "sample", "maneuver", "respawn")}
     filled = filled0
-    for _ in range(n_steps):
+    for t in range(n_steps):
+        if env_keys is None:
+            out["respawn"].append(jnp.zeros((B,), jnp.int32))
+        else:
+            out["respawn"].append(_respawn_rows(env_keys, spawns))
+            halves = jax.vmap(jax.random.split)(env_keys)
+            reset = jax.vmap(jax.random.split)(halves[:, 1])[:, 0]
+            env_keys = jax.random.wrap_key_data(jnp.where(
+                jnp.asarray(done[t])[:, None],
+                jax.random.key_data(reset),
+                jax.random.key_data(halves[:, 0])))
         key, k_ou, k_evict, k_sample, k_m = jax.random.split(key, 5)
         filled = min(filled + B, size)
         out["ou"].append(jax.random.normal(k_ou, (B, 1), jnp.float32))
@@ -101,29 +121,35 @@ def _jax_draws(key, n_steps, size, batch, filled0, updates):
             for k in jax.random.split(k_sample, updates)])
         out["maneuver"].append(jax.random.randint(k_m, (B,), 0, 3,
                                                   jnp.int32))
-        out["respawn"].append(jnp.zeros((B,), jnp.int32))
     return {k: torch.from_numpy(np.array(v)) for k, v in out.items()}
 
 
-def test_chunk_matches_jax_with_injected_draws():
+def _chunk_pair(n, **loop_kw):
+    """The JAX chunk and the port's, n steps from the same state with the
+    JAX chunk's draws injected: (jfinal, jout, pfinal, pout)."""
     cfg_dict = bench_config((48, 160))
     cfg_dict["camera"] = dict(cfg_dict["camera"], stroke="exact")
     jp = jenv.make_env_params(cfg_dict, dtype=jnp.float64)
     pp = penv.make_env_params(cfg_dict, dtype=torch.float64, device="cpu")
     jcfg = jtd3.TD3Config(seq_len=3, batch_size=8)
     pcfg = ptd3.TD3Config(seq_len=3, batch_size=8)
-    jlc = jloop.LoopConfig(replay_size=64, max_episode_steps=50)
-    plc = ploop.LoopConfig(replay_size=64, max_episode_steps=50)
-    n = 6
+    jlc = jloop.LoopConfig(**loop_kw)
+    plc = ploop.LoopConfig(**loop_kw)
     jstate = jloop.init_loop(jp, jcfg, jlc, jax.random.key(2), B)
     pstate = _port_state(jstate, pp, pcfg)
-    draws = _jax_draws(jstate.key, n, 64, 8, 0, 1)
     jfinal, jout = jax.jit(partial(
         jloop.chunk, params=jp, cfg=jcfg, loop_cfg=jlc,
         encoder_apply=j_encoder, n_steps=n))(jstate)
-    pfinal, pout = ploop.chunk(pstate, pp, pcfg, plc, p_encoder, n,
-                               draws=draws)
-    assert not np.asarray(jout["done"]).any()
+    draws = _jax_draws(jstate.key, n, jlc.replay_size, 8, 0,
+                       jlc.updates_per_step, jstate.vstate.env.key,
+                       jp.map_data.spawns.count, np.asarray(jout["done"]))
+    with torch_threads(1):
+        pfinal, pout = ploop.chunk(pstate, pp, pcfg, plc, p_encoder, n,
+                                   draws=draws)
+    return jfinal, jout, pfinal, pout
+
+
+def _assert_chunks_match(jfinal, jout, pfinal, pout):
     assert set(pout) == set(jout)
     for k in ("reward", "cte", "laneline_distances"):
         np.testing.assert_allclose(pout[k].numpy(), np.asarray(jout[k]),
@@ -145,12 +171,46 @@ def test_chunk_matches_jax_with_injected_draws():
     np.testing.assert_allclose(pfinal.queue.numpy(),
                                np.asarray(jfinal.queue), rtol=1e-5,
                                atol=1e-7)
-    assert int(pfinal.buf.filled) == int(jfinal.buf.filled) == B * n
     for k, v in jfinal.buf.storage.items():
         np.testing.assert_allclose(pfinal.buf.storage[k].numpy(),
                                    np.asarray(v), rtol=1e-5, atol=1e-7,
                                    err_msg=k)
-    assert int(pfinal.td3_state.steps) == int(jfinal.td3_state.steps) == 5
+    np.testing.assert_array_equal(pfinal.sigma.numpy(),
+                                  np.asarray(jfinal.sigma))
+    np.testing.assert_array_equal(pfinal.ep_count.numpy(),
+                                  np.asarray(jfinal.ep_count))
+    assert int(pfinal.buf.filled) == int(jfinal.buf.filled)
+    assert int(pfinal.td3_state.steps) == int(jfinal.td3_state.steps)
+
+
+def test_chunk_matches_jax_with_injected_draws():
+    jfinal, jout, pfinal, pout = _chunk_pair(6, replay_size=64,
+                                             max_episode_steps=50)
+    assert not np.asarray(jout["done"]).any()
+    _assert_chunks_match(jfinal, jout, pfinal, pout)
+    assert int(pfinal.buf.filled) == B * 6
+    assert int(pfinal.td3_state.steps) == 5
+
+
+def test_chunk_matches_jax_with_the_time_to_policy_flags():
+    """examples/train_td3.py's `--updates 4 --episodes N` at a small size:
+    four updates a step (actor updates among them, policy_delay 2), the
+    per-episode sigma 0.4 * (1 - e / 2) run past its plan (2-step
+    episodes: 4 a chunk, so sigma clamps at 0), and a 16-slot replay that
+    the chunk's 32 inserts wrap mid-chunk (eviction draws, duplicate
+    slots). Respawns happen, drawn from the JAX envs' keys."""
+    n = 8
+    jfinal, jout, pfinal, pout = _chunk_pair(
+        n, replay_size=16, max_episode_steps=2, updates_per_step=4,
+        total_episodes=2)
+    _assert_chunks_match(jfinal, jout, pfinal, pout)
+    done = pout["done"].numpy()
+    assert done.sum(axis=0).tolist() == [n // 2] * B  # past the plan of 2
+    assert (pout["sigma"].numpy()[-1] == 0).all()  # clamped at 0
+    assert int(pfinal.buf.filled) == 16 < B * n  # wrapped inside the chunk
+    assert int(pfinal.td3_state.steps) == 4 * (n - 1)  # from step 2 on
+    actor = pout["actor_loss"].numpy()
+    assert (actor[1:] != 0).all() and actor[0] == 0
 
 
 def test_fused_chunk(params):

@@ -24,8 +24,9 @@ graphs, train/td3_loop.py), then the median of 5 chunks each ended by
 chunks enqueued back to back with one synchronize, the median of 3.
 `td3_updates_per_s` is the median rate / envs * updates_per_step. Then
 one chunk under torch.profiler: the device-busy ms a step (the kernels'
-device time / T), the idle share of the traced chunk's wall (the trace's
-start and end weigh on a short chunk), the masks kernel's device ms a
+device time / T; profiler ranges are no kernels and are left out), the
+idle share of the traced chunk's wall (the trace's start and end weigh
+on a short chunk), the masks kernel's device ms a
 step and its records (one a step), the kernel records a step and the ten
 kernels that take the most device time; the peak device memory; whether
 torch's deterministic algorithms and TF32 were on; the seconds of each
@@ -194,21 +195,22 @@ def run(device="cuda", n_envs: int = 1024, chunk_steps: int = 200,
         counts = ({k: counts[k] + v
                    for k, v in _counts(state.runtime).items()}
                   if steps != chunk_steps else _counts(state.runtime))
-        kernels = [e for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
-        busy_us = sum(e.self_device_time_total for e in kernels)
+        # profile_step imports this module: import its helper here
+        from tinycarlo_torch.benchmarks.profile_step import kernel_events
+
+        kernels = kernel_events(prof)  # profiler ranges left out
+        busy_us = sum(us for _, us, _ in kernels)
         if busy_us > 0:
             busy = busy_us / 1e3 / steps
             idle = 1.0 - busy / wall_ms
-        hits = [e for e in kernels if f"{kernel.NAME}_kernel" in e.key]
+        hits = [(us, n) for name, us, n in kernels
+                if f"{kernel.NAME}_kernel" in name]
         if len(hits) == 1:
-            k1_ms = hits[0].self_device_time_total / 1e3 / steps
-            k1_records = hits[0].count / steps
-        top = [(e.key[:60], e.self_device_time_total / 1e3 / steps,
-                e.count / steps)
-               for e in sorted(kernels,
-                               key=lambda e: -e.self_device_time_total)[:10]]
-        records = sum(e.count for e in kernels) / steps
+            k1_ms = hits[0][0] / 1e3 / steps
+            k1_records = hits[0][1] / steps
+        top = [(name[:60], us / 1e3 / steps, n / steps)
+               for name, us, n in sorted(kernels, key=lambda e: -e[1])[:10]]
+        records = sum(n for _, _, n in kernels) / steps
         lap("profile")
     result = {
         "config": 4,

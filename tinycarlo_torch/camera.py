@@ -251,6 +251,24 @@ def project_layers_batch_soa(
     return u0, v0, u1, v1, draw
 
 
+def project_layers_batch(
+    nodes: torch.Tensor,
+    edges: torch.Tensor,
+    edge_mask: torch.Tensor,
+    camera_pose: torch.Tensor,
+    K: torch.Tensor,
+    resolution: Tuple[int, int],
+    max_range: Optional[float],
+):
+    """`project_layers_batch_soa` with the endpoints stacked into
+    ((B, L, E, 2) p0 / p1, (B, L, E) draw) point tensors for callers that
+    index points (tinycarlo_tpu/camera.py:272-290)."""
+    u0, v0, u1, v1, draw = project_layers_batch_soa(
+        nodes, edges, edge_mask, camera_pose, K, resolution, max_range
+    )
+    return torch.stack([u0, v0], dim=-1), torch.stack([u1, v1], dim=-1), draw
+
+
 def _point_on_line_at_z(p_keep, p_move, target_z):
     """Move p_move along the segment (p_keep, p_move) to depth target_z
     (reference camera.py:112-122, arguments in its keep/move order)."""

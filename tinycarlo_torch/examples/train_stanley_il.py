@@ -126,10 +126,10 @@ def train(state, cfg, data, n_steps: int, generator,
 
 def main(argv=None) -> Dict:
     """Run the example with `argv` (default sys.argv[1:]). Returns what it
-    measured: samples, collect_samples_per_s (None when the cache was
-    read), losses, train_steps_per_s, dagger_samples, eval (per maneuver),
-    the model's path and, on the card, peak_memory_gb (before the
-    evaluation)."""
+    measured: samples, split (the samples per maneuver),
+    collect_samples_per_s (None when the cache was read), losses,
+    train_steps_per_s, dagger_samples, eval (per maneuver), the model's
+    path and, on the card, peak_memory_gb (before the evaluation)."""
     argv = sys.argv[1:] if argv is None else list(argv)
 
     def arg(flag, default, cast=int):
@@ -176,6 +176,7 @@ def main(argv=None) -> Dict:
           f"{sum(a.size * a.itemsize for a in (X, M, Y)) / 1e9:.2f} GB | "
           f"type: {X.dtype} | shape: {X.shape}")
     out["samples"] = len(X)
+    out["split"] = [int((M == m).sum()) for m in range(3)]
 
     state = create(obs_shape, cfg, seed=1, device=device)
     balance = "--balance" in argv

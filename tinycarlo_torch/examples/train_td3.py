@@ -29,6 +29,12 @@ card's launch queue holds the host back while it enqueues a chunk, so
 most of chunk i + 1 may have run before chunk i's wait returns.) The loss plot needs matplotlib;
 without it the example says so and goes on.
 
+It prints the peak host and device memory after the set-up and at the
+end, the captured graphs with their replays once, and the time to
+policy: the summed chunk seconds up to the first chunk whose reward per
+episode reaches POLICY_REWARD (docs/TRAINING.md's criterion), beside the
+wall clock since main() began.
+
 Usage: python -m tinycarlo_torch.examples.train_td3 [--envs 64]
   [--chunks 40] [--steps 100] [--shift] [--episodes N] [--updates 1]
   [--sync] and, beyond the JAX example's flags: [--replay 100000]
@@ -39,10 +45,11 @@ temporary directory.)
 """
 import copy
 import os
+import resource
 import sys
 import tempfile
 import time
-from typing import Dict
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -74,11 +81,15 @@ SEQ_LEN = 10
 SPEED = 0.4
 STEERING_SHIFT = -0.01
 NETS = ("actor", "critic1", "critic2")
+# training reward per episode that counts as a policy (docs/TRAINING.md's
+# time-to-policy criterion)
+POLICY_REWARD = 300.0
 
 
-def frozen_encoder(params) -> torch.nn.Module:
+def frozen_encoder(params) -> Tuple[torch.nn.Module, str]:
     """The encoder of the module docstring's preference order, frozen in
-    eval mode on the params' device."""
+    eval mode on the params' device, and where it came from: the IL
+    model's path, "pretrained" or "init"."""
     obs_shape = fenv.observation_shape(params)
     h, w = params.cfg.camera.resolution
     channels = obs_shape[-1] if obs_shape[-1] in (1, 3) else obs_shape[0]
@@ -91,18 +102,50 @@ def frozen_encoder(params) -> torch.nn.Module:
         combo = TinycarCombo(
             channels, flat_features=state["encoder.fc1.weight"].shape[1])
         combo.load_state_dict(state)
-        encoder = combo.encoder
+        encoder, source = combo.encoder, il_model
         print(f"loaded IL-trained combo from {il_model}")
     if encoder is None:
         combo = load_pretrained(obs_shape, device=params.device)
         if combo is not None:
-            encoder = combo.encoder
+            encoder, source = combo.encoder, "pretrained"
             print("loaded pretrained encoder")
     if encoder is None:
         encoder = flax_init_(
             TinycarEncoder(channels, flat_features=encoder_flat_features(h, w)),
             torch.Generator().manual_seed(1))
-    return encoder.to(params.device).eval().requires_grad_(False)
+        source = "init"
+        print("no IL model nor pretrained combo: a fresh encoder (seed 1)")
+    return encoder.to(params.device).eval().requires_grad_(False), source
+
+
+def peak_memory(device: torch.device) -> Dict[str, Optional[float]]:
+    """The process's peak resident host memory and the peak device memory
+    allocated (None off the card), in GB."""
+    host = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9
+    dev = (torch.cuda.max_memory_allocated(device) / 1e9
+           if device.type == "cuda" else None)
+    print(f"peak memory: host {host:.2f} GB, device "
+          + ("-" if dev is None else f"{dev:.2f} GB"))
+    return {"host_gb": host, "device_gb": dev}
+
+
+def kind_name(kind) -> str:
+    """A step kind of `td3_loop.step_kinds` in words."""
+    if kind is None:
+        return "collect only"
+    actor = [i + 1 for i, a in enumerate(kind) if a]
+    return (f"{len(kind)} critic updates, actor at "
+            f"{', '.join(map(str, actor)) or 'none'}")
+
+
+def time_to_policy(rewards: List[float], seconds: List[float]):
+    """(chunk number from 1, summed chunk seconds up to and including it)
+    of the first chunk whose reward per episode reaches POLICY_REWARD, or
+    (None, None)."""
+    for i, r in enumerate(rewards):
+        if r >= POLICY_REWARD:
+            return i + 1, float(sum(seconds[:i + 1]))
+    return None, None
 
 
 def _to_host(t: torch.Tensor) -> torch.Tensor:
@@ -133,8 +176,12 @@ def _seconds(start, end) -> float:
 
 def main(argv=None) -> Dict:
     """Run the example with `argv` (default sys.argv[1:]). Returns each
-    chunk's env-steps/s, the output directory, whether the plot was
-    written, and the evaluation (per maneuver)."""
+    chunk's env-steps/s, seconds, reward per episode and replay fill,
+    the losses, where the encoder came from, the time to policy, the wall
+    clock, the peak memory, the graphs' replays by kind, the final loop
+    state, the output directory, whether the plot was written, and the
+    evaluation (per maneuver)."""
+    wall0 = time.perf_counter()
     argv = sys.argv[1:] if argv is None else list(argv)
     n_envs = arg(argv, "--envs", 64)
     n_chunks = arg(argv, "--chunks", 40)
@@ -168,12 +215,13 @@ def main(argv=None) -> Dict:
         total_episodes=total_eps,
     )
     stack = standard_stack()  # same shaping as train_td3.py:60-62
-    encoder = frozen_encoder(params)
+    encoder, source = frozen_encoder(params)
     encoder_apply = encoder_apply_fn(encoder)
     state = init_loop(params, cfg, loop_cfg, n_envs, seed=0, stack=stack)
+    memory = {"start": peak_memory(params.device)}
 
     c1_hist, c2_hist, a_hist, rew_hist = [], [], [], []
-    cte_hist, dist_hist, rates = [], [], []
+    cte_hist, dist_hist, rates, secs, filled_hist = [], [], [], [], []
     # per-net weight snapshots every chunk: the batched analogue of the
     # reference's every-200-steps tracking (train_td3.py:151-158)
     w_hist = {net: {} for net in NETS}
@@ -197,7 +245,9 @@ def main(argv=None) -> Dict:
     def consume(pending):
         """Wait for one chunk's copies and log it."""
         i, out, weights, filled, start, done = pending
-        rates.append(chunk_steps * n_envs / _seconds(start, done))
+        secs.append(_seconds(start, done))
+        rates.append(chunk_steps * n_envs / secs[-1])
+        filled_hist.append(filled)
         out = {k: v.float().numpy() for k, v in out.items()}
         c1_hist.extend(out["critic1_loss"].tolist())
         c2_hist.extend(out["critic2_loss"].tolist())
@@ -237,6 +287,18 @@ def main(argv=None) -> Dict:
             pending = None
     if pending is not None:
         consume(pending)
+    rt = state.runtime
+    for kind in rt.graphs:
+        print(f"graph of {kind_name(kind)}: captured once, replayed "
+              f"{rt.replays_by_kind.get(kind, 0)} times")
+    print(f"{rt.eager_steps} steps ran eagerly, {rt.replays} replayed")
+    first, to_policy = time_to_policy(rew_hist, secs)
+    train_wall = time.perf_counter() - wall0
+    print(f"{sum(secs):.2f} s of chunks on the {params.device.type}, "
+          f"{train_wall:.2f} s of wall clock since the start; first chunk "
+          f"with reward per episode >= {POLICY_REWARD:g}: "
+          + ("none" if first is None else
+             f"{first} after {to_policy:.2f} s of chunks"))
 
     sfx = "with_shift" if include_shift else "without_shift"
     tlog.save_losses(out_dir, c1_hist, c2_hist, a_hist, sfx)
@@ -272,7 +334,19 @@ def main(argv=None) -> Dict:
             steps=arg(argv, "--eval-steps", 1000), episodes=episodes,
         )
         print_eval(maneuver, r)
-    return {"env_steps_per_s": rates, "out_dir": out_dir, "plot": plot,
+    memory["end"] = peak_memory(params.device)
+    wall = time.perf_counter() - wall0
+    print(f"wall clock: {wall:.2f} s")
+    return {"env_steps_per_s": rates, "chunk_seconds": secs,
+            "rewards": rew_hist, "filled": filled_hist,
+            "losses": {"critic1": c1_hist, "critic2": c2_hist,
+                       "actor": a_hist},
+            "encoder": source, "first_policy_chunk": first,
+            "seconds_to_policy": to_policy, "train_wall_s": train_wall,
+            "wall_s": wall, "peak_memory": memory,
+            "graphs": {kind: rt.replays_by_kind.get(kind, 0)
+                       for kind in rt.graphs},
+            "state": state, "out_dir": out_dir, "plot": plot,
             "eval": results}
 
 

@@ -203,7 +203,8 @@ def step_kinds(state: LoopState, cfg: td3.TD3Config, loop_cfg: LoopConfig,
 
 class _Runtime:
     """A chunk's output buffers, its step index, the injected draws'
-    buffers and the captured graph of each kind of step."""
+    buffers, and the captured graph of each kind of step with its
+    replays."""
 
     def __init__(self, key, n_steps: int, outs: Dict[str, torch.Tensor],
                  dev: torch.device):
@@ -216,6 +217,7 @@ class _Runtime:
         self.pool = None
         self.stream = None
         self.replays = 0
+        self.replays_by_kind: Dict[Any, int] = {}
         self.eager_steps = 0
 
 
@@ -426,6 +428,7 @@ def chunk(
         if g is not None:
             g.replay()
             rt.replays += 1
+            rt.replays_by_kind[kind] = rt.replays_by_kind.get(kind, 0) + 1
             continue
         rt.eager_steps += 1
         if not use_graph:
