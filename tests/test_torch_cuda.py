@@ -1234,3 +1234,160 @@ def test_step_decomp_mode_captures(mode):
     launched = rk.masks_kernel.launches - before
     assert launched == (3 if mode in sd.RENDERING else 0)
     assert r["modes"][0]["mode"] == mode and r["modes"][0]["ms"] > 0
+
+
+# ---- the tracer (utils/profiling.py, ops/csrc/trace_mark.cu) ---------------
+
+def _kineto(prof):
+    """(name, start ns) of a finished profile's device activity."""
+    return [(e.name(), e.start_ns())
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == torch.autograd.DeviceType.CUDA]
+
+
+def test_tracer_device_spans_survive_replay():
+    """Device spans and a device counter captured into a graph: every
+    replay writes marks of its own, nested under the step's span; on the
+    host clock each replay's marks fall between the host's reads before
+    its launch and after its synchronize, and the intervals between marks
+    equal those between the mark kernels' profiler starts within 1 us (the
+    profiler's own device timestamps drift from the host clock by tens of
+    microseconds over seconds: PERF.md section 6); the counter adds once a
+    replay; a graph captured with tracing off holds no mark kernel."""
+    _require_cuda()
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from tinycarlo_torch.utils import profiling
+
+    x = torch.ones(1 << 16, device="cuda")
+
+    def body():
+        with profiling.device_span("step"):
+            with profiling.device_span("inner"):
+                x.mul_(1.0001)
+            profiling.device_count("ones", x[:8] > 0)
+
+    host = []
+    with profiling.tracing() as tr:
+        body()  # eager, on the current stream
+        graph = torch.cuda.CUDAGraph()
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            body()
+        torch.cuda.current_stream().wait_stream(stream)
+        with torch.cuda.graph(graph):
+            body()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                h0 = time.time_ns()
+                graph.replay()
+                torch.cuda.synchronize()
+                host.append((h0, time.time_ns()))
+    spans = tr.device_spans()
+    replayed = [s for s in spans if s.replayed]
+    assert [s.name for s in replayed] == ["step", "inner"] * 5
+    assert [s.name for s in spans if not s.replayed] == ["step", "inner"] * 2
+    for s in spans:
+        assert s.end_ns > s.start_ns
+        if s.name == "inner":
+            p = spans[s.parent]
+            assert p.name == "step"
+            assert p.start_ns <= s.start_ns and s.end_ns <= p.end_ns
+    slack = 20_000  # ns: the offset is measured to a few microseconds
+    for (h0, h1), step in zip(host, replayed[::2]):
+        assert h0 - slack <= step.start_ns < step.end_ns <= h1 + slack, (
+            h0, step.start_ns, step.end_ns, h1)
+    assert tr.counters["ones"] == 8 * 7
+    assert tr.counters["trace.marks_lost"] == 0
+    starts = np.sort([t for n, t in _kineto(prof) if "mark_kernel" in n])
+    assert len(starts) == 4 * 5, len(starts)
+    marks = np.sort([t for s in replayed for t in (s.start_ns, s.end_ns)])
+    intervals = np.abs(np.diff(marks) - np.diff(starts))
+    assert intervals.max() < 1_000, intervals
+
+    off = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(off):
+        body()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        off.replay()
+        torch.cuda.synchronize()
+    assert not any("mark_kernel" in n for n, _ in _kineto(prof))
+
+
+def test_tracer_small_ring_on_the_card(monkeypatch):
+    _require_cuda()
+    from tinycarlo_torch.utils import profiling
+
+    monkeypatch.setattr(profiling, "RING_MARKS", 8)
+    with profiling.tracing() as tr:
+        for _ in range(20):
+            with profiling.device_span("x"):
+                pass
+    assert tr.counters["trace.marks_lost"] == 40 - 8
+    assert len(tr.device_spans()) == 4
+
+
+def test_tracer_leaves_rollout_and_gym_outputs():
+    """A rendering rollout (3 eager steps, 17 replays) and 30 gym steps
+    give the same outputs bit for bit with tracing on and off; the gym
+    shim keeps a graph for each; its spans split the step into host work
+    and the wait."""
+    _require_cuda()
+    from tinycarlo_torch import env as fenv
+    from tinycarlo_torch import vector
+    from tinycarlo_torch.benchmarks import bench as pbench
+    from tinycarlo_torch.gym_env import TinyCarloEnv
+    from tinycarlo_torch.utils import profiling
+
+    params = fenv.make_env_params(pbench.CONFIG)
+    n = 64
+
+    def policy(obs, env_state, generator):
+        steer = torch.rand(n, generator=generator, device="cuda") * 2 - 1
+        return {"car_control": torch.stack(
+            [torch.full_like(steer, 0.5), steer], -1),
+            "maneuver": torch.zeros(n, dtype=torch.int32, device="cuda")}
+
+    def roll():
+        vstate, _ = vector.reset(params, n, seed=6, render=False)
+        return vector.rollout(params, vstate, policy, 20,
+                              max_episode_steps=7)[1]
+
+    off = roll()
+    with profiling.tracing() as tr:
+        on = roll()
+    assert all(torch.equal(off[k], on[k]) for k in off)
+    replayed = [s for s in tr.device_spans() if s.replayed]
+    assert sum(s.name == "rollout.step" for s in replayed) == 17
+    assert sum(s.name == "render" for s in replayed) == 17
+    e = params.map_data.packed_edges.shape[1]
+    nxb = -(-params.cfg.camera.resolution[1] // 128)
+    assert tr.counters["render.copies"] == 20 * n * e * nxb
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = TinyCarloEnv(config=os.path.join(
+        repo, "examples", "config_simple_layout.yaml"))
+
+    def steps():
+        env.reset(seed=4)
+        rng = np.random.default_rng(4)
+        out = []
+        for _ in range(30):
+            obs, r, te, tr_, info = env.step(
+                {"car_control": rng.uniform(-1, 1, 2),
+                 "maneuver": int(rng.integers(0, 4))})
+            out.append((obs, r, te, tr_, info["cte"]))
+        return out
+
+    off = steps()
+    with profiling.tracing() as tr:
+        on = steps()
+    assert len(env._graphs) == 2
+    for a, b in zip(off, on):
+        assert np.array_equal(a[0], b[0]) and a[1:] == b[1:]
+    waits = [s for s in tr.spans if s.name == "gym.wait" and s.call_id]
+    assert len(waits) == 30 and all(s.end_ns > s.start_ns for s in waits)

@@ -164,9 +164,10 @@ def test_profile_step_run_on_cpu():
 
 
 def test_profile_td3_run_on_cpu():
-    """A warm chunk, a traced one and an eager one of 2 steps at 4 envs,
-    64x80, a 64-slot replay and batch 8 (updates from the second step):
-    the keys, the stages of td3_loop.STAGES that ran, and the script's
+    """A warm chunk, a traced one, an eager one and two under the tracer
+    (the graphs' stage split) of 2 steps at 4 envs, 64x80, a 64-slot
+    replay and batch 8 (updates from the second step): the keys, the
+    stages of td3_loop.STAGES that ran, both ways, and the script's
     constants."""
     import dataclasses
 
@@ -178,14 +179,18 @@ def test_profile_td3_run_on_cpu():
                       "busy_ms_per_step", "env_steps_per_s_device",
                       "records_per_step", "render_kernel_records_per_step",
                       "wall_ms_per_step", "idle_share", "stages_ms_eager",
+                      "stages_ms_graph",
                       "eager_busy_ms_per_step", "eager_records_per_step",
                       "eager_top_kernels", "buffer_filled", "device"}
     assert r["env_steps_per_s_device"] is None and r["device"] == "cpu"
-    assert r["obs_dtype"] == "uint8" and r["buffer_filled"] == 4 * 2 * 3
+    assert r["obs_dtype"] == "uint8" and r["buffer_filled"] == 4 * 2 * 5
     stages = r["stages_ms_eager"]
     assert {"td3.policy", "td3.env_step", "td3.encoder", "td3.replay_add",
             "td3.update", "vector.render", "other"} <= set(stages)
     assert all(v >= 0 for k, v in stages.items() if k != "other")
+    graph_stages = r["stages_ms_graph"]
+    assert set(graph_stages) == set(stages) - {"other"}
+    assert all(v >= 0 for v in graph_stages.values())
     script = script_globals(_script("profile_td3.py"))
     assert (profile_td3.N_ENVS, profile_td3.STEPS) == (
         script["N_ENVS"], script["STEPS"])

@@ -17,15 +17,20 @@ kernels of at least 0.02 ms a loop step, the rest, the total device ms a
 loop step and the env-steps/s of that device total; then the kernel
 records a step, the idle share of the traced chunk, and one JSON line.
 
-The stages. A replayed graph holds no host ranges, so the stages are
-read from one more chunk of STEPS steps run eagerly (`graph=False`) under
-the profiler: `train.td3_loop._step` opens a profiler range around each
-stage (`td3_loop.STAGES`: policy, env step, float-obs render, encoder,
-replay insert, update) and `vector.step` one around its render; a stage's
-device ms is the device time of the kernels that the operators inside its
-range launched (an operator in its innermost range), "other" that of the
-operators outside every range. The eager chunk's own busy ms and records
-a step are printed beside the graphs'.
+The stages, two ways. `train.td3_loop._step` opens a device span
+(utils/profiling.py) around each stage (`td3_loop.STAGES`: policy, env
+step, float-obs render, encoder, replay insert, update) and `vector.step`
+one around its render. (1) Eager: one more chunk of STEPS steps run
+eagerly (`graph=False`) under the profiler and the tracer, whose spans
+open profiler ranges there; a stage's device ms is the device time of the
+kernels that the operators inside its range launched (an operator in its
+innermost range), "other" that of the operators outside every range. The
+eager chunk's own busy ms and records a step are printed beside the
+graphs'. (2) In the replayed graphs: a chunk under the tracer captures
+each kind's graph with its marks, and the next chunk's replays are read;
+a stage's device ms is its spans' time less that of the stages inside
+them (`graph_stage_ms`), so the two splits count alike. On the CPU both
+read host time.
 
 Runs on the card and raises without a GPU; `run(device="cpu")` runs the
 chunks eagerly at a tiny size and reads the host operators' self time
@@ -53,6 +58,7 @@ from tinycarlo_torch.train import td3
 from tinycarlo_torch.train.evaluate import standard_stack
 from tinycarlo_torch.train.td3_loop import (STAGES, LoopConfig, chunk,
                                             init_loop)
+from tinycarlo_torch.utils import profiling
 from tinycarlo_torch.utils.helper import card_line, resolve_device
 
 N_ENVS = int(os.environ.get("BENCH_ENVS4", 64))
@@ -84,6 +90,33 @@ def stage_ms(prof, steps: int, cuda: bool = True) -> Dict[str, float]:
         key = "other" if node is None else node.name
         out[key] = out.get(key, 0.0) + us
     return {name: us / 1e3 / steps for name, us in sorted(out.items())}
+
+
+def graph_stage_ms(spans, steps: int, replayed: bool = True
+                   ) -> Dict[str, float]:
+    """ms a step of each labelled stage (td3_loop.STAGES and vector.step's
+    render) from device spans (`profiling.Span`; `replayed`: only those a
+    graph's replay wrote): a span's time less that of the labelled spans
+    nearest inside it, as the eager split counts an operator in its
+    innermost range."""
+    labels = set(STAGES) | {RENDER_RANGE}
+    ns: Dict[str, int] = {}
+
+    def labelled_parent(i):
+        p = spans[i].parent
+        while p >= 0 and spans[p].name not in labels:
+            p = spans[p].parent
+        return p
+
+    for i, sp in enumerate(spans):
+        if sp.name not in labels or (replayed and not sp.replayed):
+            continue
+        d = sp.end_ns - sp.start_ns
+        ns[sp.name] = ns.get(sp.name, 0) + d
+        p = labelled_parent(i)
+        if p >= 0:
+            ns[spans[p].name] = ns.get(spans[p].name, 0) - d
+    return {name: v / 1e6 / steps for name, v in sorted(ns.items())}
 
 
 def run(device="cuda", n_envs: int = N_ENVS, steps: int = STEPS,
@@ -135,11 +168,16 @@ def run(device="cuda", n_envs: int = N_ENVS, steps: int = STEPS,
         raise RuntimeError(
             f"profile_td3: the trace holds {kernel_records:g} {kernel.NAME} "
             "kernel records a step, not 1: it lost records (ROADMAP F2)")
-    with profile(activities=activities) as eager_prof:
+    with profiling.tracing(), profile(activities=activities) as eager_prof:
         one(graph=False)
         sync()
     stages = stage_ms(eager_prof, steps, cuda)
     eager = aggregate(kernel_events(eager_prof, cuda), steps, threshold)
+    with profiling.tracing():  # captures the graphs with their marks
+        one()
+    with profiling.tracing() as tr:
+        one()
+    graph_stages = graph_stage_ms(tr.device_spans(), steps, replayed=cuda)
     if not all(torch.isfinite(v).all() for v in out.values()):
         raise RuntimeError("profile_td3: a chunk output is not finite")
     busy = agg["total_ms"]
@@ -161,6 +199,7 @@ def run(device="cuda", n_envs: int = N_ENVS, steps: int = STEPS,
         "wall_ms_per_step": wall_ms,
         "idle_share": 1.0 - busy / wall_ms if cuda else None,
         "stages_ms_eager": stages,
+        "stages_ms_graph": graph_stages,
         # the eager chunk's own totals, beside the replayed graphs'
         "eager_busy_ms_per_step": eager["total_ms"],
         "eager_records_per_step": eager["records"],
@@ -183,6 +222,9 @@ def main(argv=None) -> int:
           f"share {result['idle_share']:.4f}; stages (device ms a step, an "
           "eager chunk): " + ", ".join(
               f"{k} {v:.4f}" for k, v in result["stages_ms_eager"].items()))
+    print("  stages (device ms a step, the replayed graphs' device spans): "
+          + ", ".join(f"{k} {v:.4f}"
+                      for k, v in result["stages_ms_graph"].items()))
     print(json.dumps(result))
     return 0
 

@@ -30,6 +30,7 @@ from tinycarlo_torch.config import EnvConfig, load_config
 from tinycarlo_torch.map_compiler import MapData, compile_map
 from tinycarlo_torch.ops import rasterize as ras
 from tinycarlo_torch.ops import rasterize_kernels as rk
+from tinycarlo_torch.utils import profiling
 from tinycarlo_torch.utils.helper import resolve_device
 
 
@@ -168,10 +169,17 @@ def render_observation_batch(
     `out_dtype=None` keeps the observation contract (uint8); float32 or
     bfloat16 gives 0/1 class masks straight from the masks (or exact)
     kernel for in-graph consumers such as the TD3 trainer's encoder feed
-    (tinycarlo_tpu/env.py:256-266), and is only defined for classes."""
+    (tinycarlo_tpu/env.py:256-266), and is only defined for classes.
+    Traced as the device span "render" (utils/profiling.py)."""
     fmt = _check_format(params, fmt)
     if out_dtype is not None and fmt != "classes":
         raise ValueError("float out_dtype is only defined for classes masks")
+    with profiling.device_span("render", states.car.position.device):
+        return _render(params, states, fmt, out_dtype)
+
+
+def _render(params: EnvParams, states: EnvState, fmt: str,
+            out_dtype: Optional[torch.dtype]) -> torch.Tensor:
     cfg = params.cfg
     md = params.map_data
     u0, v0, u1, v1, draw = _project_packed_batch_soa(params, states)

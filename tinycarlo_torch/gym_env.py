@@ -12,8 +12,8 @@ runs the plain PyTorch path. On the card a step is ONE replayed CUDA
 graph: the car step, the render (the masks kernel for classes, the rank
 kernel for rgb, rgb_planar and rank, the exact kernel under `camera.stroke:
 exact`), the info and the default or wrapped shaping, captured once per
-(render, wrapped) mode at its first use, over static state and action
-buffers. Per step the host writes the action into a pinned buffer, copies
+(render, wrapped) mode at its first use (and once more with tracing on:
+utils/profiling.py), over static state and action buffers. Per step the host writes the action into a pinned buffer, copies
 it in, replays, and copies obs, reward, flags and info out as ONE byte
 buffer into pinned memory (tinycarlo_tpu/gym_env.py:309-326 is the JAX
 shim's one dispatch and one transfer). The capture raises unless it
@@ -22,6 +22,9 @@ its wrapper counts that recording, and a replay, which runs the recorded
 launch without the wrapper, counts nothing (`replays` counts the
 replays). Anything that changes the state outside a step (`reset`,
 `camera.update_params()`) writes into the captured tensors in place.
+Traced, `step()` is the call span "gym.step": "gym.stage_in" (the action
+staged and copied in), "gym.replay", "gym.wait" (the copy out and its
+synchronize) and "gym.unpack" (the buffer's fields, `_convert_info`).
 
 The eager path (`device="cpu"`, and `DEBUG=1` / `DEBUG=2`, whose staged
 step prints the reference's timing lines) runs the same step body; a
@@ -48,6 +51,7 @@ from tinycarlo_torch import car as car_mod
 from tinycarlo_torch import env as fenv
 from tinycarlo_torch.config import load_config
 from tinycarlo_torch.ops import rasterize_kernels as rk
+from tinycarlo_torch.utils import profiling
 from tinycarlo_torch.utils.gym_compat import Env, spaces
 from tinycarlo_torch.utils.helper import getenv, numpy_dtype, resolve_device
 
@@ -230,12 +234,13 @@ class TinyCarloEnv(Env):
         cuda = self.device.type == "cuda"
         self._action_host = torch.zeros(3, dtype=torch.float64,
                                         pin_memory=cuda)
-        # replay each (render, wrapped) mode's captured step on the card;
-        # False steps eagerly, as off the card
+        # replay each (render, wrapped, tracing) mode's captured step on
+        # the card; False steps eagerly, as off the card
         self.graphs = cuda
         self.replays = 0  # graph replays, one a replayed step
-        # (render, wrapped) -> (graph, packed output, layout)
-        self._graphs: Dict[Tuple[bool, bool], tuple] = {}
+        # (render, wrapped, tracing) -> (graph, packed output, layout,
+        # the capture's held host counts)
+        self._graphs: Dict[Tuple[bool, bool, bool], tuple] = {}
         self._host_out: Dict[int, torch.Tensor] = {}  # pinned, by size
 
         self.action_space = spaces.Dict(
@@ -312,24 +317,30 @@ class TinyCarloEnv(Env):
         return _pack(outputs)
 
     def _to_host(self, packed: torch.Tensor, layout) -> Dict[str, np.ndarray]:
-        """ONE device->host copy of a packed buffer, unpacked."""
+        """ONE device->host copy of a packed buffer, unpacked (traced as
+        "gym.wait" and "gym.unpack")."""
         if self.device.type != "cuda":
-            return _unpack(packed.numpy(), layout)
+            with profiling.span("gym.unpack"):
+                return _unpack(packed.numpy(), layout)
         host = self._host_out.get(packed.numel())
         if host is None:
             host = torch.empty(packed.numel(), dtype=torch.uint8,
                                pin_memory=True)
             self._host_out[packed.numel()] = host
-        host.copy_(packed, non_blocking=True)
-        torch.cuda.current_stream(self.device).synchronize()
-        return _unpack(host.numpy(), layout)
+        with profiling.span("gym.wait"):
+            host.copy_(packed, non_blocking=True)
+            torch.cuda.current_stream(self.device).synchronize()
+        with profiling.span("gym.unpack"):
+            return _unpack(host.numpy(), layout)
 
-    def _capture(self, want_obs: bool, wrapped: bool):
-        """The first step of a (render, wrapped) mode: an eager step on a
-        side stream (launchers' one-time setup, lazy initialisation), then
-        the capture of the step body, which runs nothing and must record
-        one launch of the render kernel (none without a render). Returns
-        the eager step's packed outputs and layout."""
+    def _capture(self, key: Tuple[bool, bool, bool]):
+        """The first step of a (render, wrapped, tracing) mode: an eager
+        step on a side stream (launchers' one-time setup, lazy
+        initialisation), then the capture of the step body, which runs
+        nothing and must record one launch of the render kernel (none
+        without a render). Returns the eager step's packed outputs and
+        layout."""
+        want_obs, wrapped, _ = key
         stream = torch.cuda.Stream(self.device)
         stream.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(stream):
@@ -337,7 +348,7 @@ class TinyCarloEnv(Env):
         torch.cuda.current_stream(self.device).wait_stream(stream)
         before = {k.NAME: k.launches for k in RENDER_KERNELS}
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
+        with profiling.held_counts() as held, torch.cuda.graph(graph):
             static, _ = self._step_body(want_obs, wrapped)
         recorded = {k.NAME: k.launches - before[k.NAME]
                     for k in RENDER_KERNELS}
@@ -347,20 +358,24 @@ class TinyCarloEnv(Env):
         if recorded != want:
             raise RuntimeError(f"the captured step recorded the launches "
                                f"{recorded}, not {want}")
-        self._graphs[(want_obs, wrapped)] = (graph, static, layout)
+        self._graphs[key] = (graph, static, layout, held)
         return packed, layout
 
     def _fused_step(self, want_obs: bool, wrapped: bool
                     ) -> Dict[str, np.ndarray]:
         """One step: a replay of the mode's graph (captured at its first
-        step), or eagerly when `graphs` is off."""
+        step; a graph captured with tracing on marks its device spans, so
+        tracing picks its own), or eagerly when `graphs` is off."""
         if not self.graphs:
             return self._to_host(*self._step_body(want_obs, wrapped))
-        entry = self._graphs.get((want_obs, wrapped))
+        key = (want_obs, wrapped, profiling.enabled())
+        entry = self._graphs.get(key)
         if entry is None:
-            return self._to_host(*self._capture(want_obs, wrapped))
-        graph, static, layout = entry
-        graph.replay()
+            return self._to_host(*self._capture(key))
+        graph, static, layout, held = entry
+        with profiling.span("gym.replay"):
+            graph.replay()
+        profiling.add_counts(held)
         self.replays += 1
         return self._to_host(static, layout)
 
@@ -412,12 +427,18 @@ class TinyCarloEnv(Env):
         return observation, self._convert_info(info)
 
     def step(self, action: Dict[str, Any]):
+        with profiling.span("gym.step", call=True):
+            return self._step(action)
+
+    def _step(self, action: Dict[str, Any]):
         st = time.perf_counter()
-        control = np.clip(np.asarray(action["car_control"], np.float64), -1, 1)
-        staged = self._action_host.numpy()
-        staged[:2] = control
-        staged[2] = int(action["maneuver"])
-        self._action.copy_(self._action_host, non_blocking=True)
+        with profiling.span("gym.stage_in"):
+            control = np.clip(np.asarray(action["car_control"], np.float64),
+                              -1, 1)
+            staged = self._action_host.numpy()
+            staged[:2] = control
+            staged[2] = int(action["maneuver"])
+            self._action.copy_(self._action_host, non_blocking=True)
         want_obs = not self.no_observation or self.render_mode is not None
         # DEBUG=1: staged step timings (reference env.py:144-145);
         # DEBUG=2: also per-layer camera timings (reference camera.py:99-109)
@@ -435,13 +456,10 @@ class TinyCarloEnv(Env):
         if self.render_mode == "human":
             self._render_frame()
         self.loop_time = time.perf_counter() - st
-        return (
-            observation,
-            float(reward),
-            bool(terminated),
-            bool(truncated),
-            self._convert_info(info),
-        )
+        with profiling.span("gym.unpack"):
+            info = self._convert_info(info)
+        return (observation, float(reward), bool(terminated), bool(truncated),
+                info)
 
     def _step_debug(self, want_obs: bool, st: float):
         """DEBUG=1 staged step with the reference's per-stage timing prints

@@ -58,6 +58,7 @@ from tinycarlo_torch.ops.rasterize import (
     _split_radii,
     _stroke_radius_sq,
 )
+from tinycarlo_torch.utils import profiling
 
 # Packed band word: bw = (frame * n_bands + b0) * _NB_PACK + nb.
 _NB_PACK = 512
@@ -1586,17 +1587,30 @@ def _packed_bundle(compact, u0, v0, u1, v1, draw, edge_layer, n_layers,
                    resolution, thickness, max_visible, layer_bounds):
     """The production compaction `compact` of a packed edge axis with any
     leading shape: budget max_visible * ceil(w/128) copies (all copies when
-    None; rasterize_pallas.py:2423). Returns (leading shape, bundle)."""
+    None; rasterize_pallas.py:2423). Returns (leading shape, bundle).
+
+    Traced as the device span "render.compact", with the counters
+    "render.copies" (the copies it sorts) and "render.live_copies" /
+    "render.dropped_copies" (rows 0 and 3 of the bundle's counts: copies
+    given a slot, eligible copies left without one) summed over the batch
+    (utils/profiling.py)."""
     lead = draw.shape[:-1]
     e = draw.shape[-1]
     h, w = resolution
     nxb = _n_xblocks(w)
     k = e * nxb if max_visible is None else min(max_visible * nxb, e * nxb)
     u0, v0, u1, v1, draw = (x.reshape(-1, e) for x in (u0, v0, u1, v1, draw))
-    return lead, compact(
-        u0, v0, u1, v1, draw, k, h, thickness, edge_layer=edge_layer,
-        n_layers=n_layers, w=w, layer_bounds=layer_bounds,
-    )
+    with profiling.device_span("render.compact", draw.device):
+        bundle = compact(
+            u0, v0, u1, v1, draw, k, h, thickness, edge_layer=edge_layer,
+            n_layers=n_layers, w=w, layer_bounds=layer_bounds,
+        )
+    if profiling.enabled():
+        counts = bundle[-1]
+        profiling.count("render.copies", draw.shape[0] * e * nxb)
+        profiling.device_count("render.live_copies", counts[0])
+        profiling.device_count("render.dropped_copies", counts[3])
+    return lead, bundle
 
 
 def rasterize_masks_packed_soa(

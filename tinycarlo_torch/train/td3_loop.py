@@ -37,7 +37,8 @@ of T steps (at ~2000 kernels a step that would be 400k nodes). A step's
 two branches -- whether the buffer holds a batch (:229-232) and whether an
 update is an actor step (td3.py:211-213) -- are functions of the step
 count, which the host counts: so the loop captures one graph per kind of
-step (collect only; critic-only updates; critic + actor), the first step
+step (collect only; critic-only updates; critic + actor; and once more
+under tracing, whose graphs mark their stages), the first step
 of each kind run eagerly on a side stream before its capture, and replays
 them in the order the counts give. The graphs share one memory pool and
 write everything into the state's own tensors and into (T, ...) output
@@ -57,7 +58,6 @@ from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
-from torch.profiler import record_function
 
 from tinycarlo_torch import env as fenv
 from tinycarlo_torch import vector
@@ -66,14 +66,15 @@ from tinycarlo_torch.parallel.mesh import (DATA_AXIS, axis_group,
                                            axis_size, data_rows)
 from tinycarlo_torch.train import replay as rb
 from tinycarlo_torch.train import td3
-from tinycarlo_torch.utils import graphs
+from tinycarlo_torch.utils import graphs, profiling
 from tinycarlo_torch.wrapper.functional import WrapperStack
 
 # the initial OU sigma (train_td3.py:143)
 SIGMA0 = 0.4
-# a step's stages, as the profiler ranges `_step` opens around them
-# (benchmarks/profile_td3.py prices them); the uint8 observation's render
-# runs inside the env step, in vector.step's "vector.render" range
+# a step's stages, as the device spans `_step` opens around them
+# (utils/profiling.py; benchmarks/profile_td3.py prices them, eager and in
+# the replayed graphs); the uint8 observation's render runs inside the
+# env step, in vector.step's "vector.render" span
 STAGES = ("td3.policy", "td3.env_step", "td3.render", "td3.encoder",
           "td3.replay_add", "td3.update")
 
@@ -214,6 +215,10 @@ class _Runtime:
         self.t = torch.zeros(1, dtype=torch.long, device=dev)
         self.draws: Optional[Dict[str, torch.Tensor]] = None
         self.graphs: Dict[Any, torch.cuda.CUDAGraph] = {}
+        # the graphs captured with tracing on (they mark their stages), and
+        # the host counts each capture held (utils/profiling.py)
+        self.traced_graphs: Dict[Any, torch.cuda.CUDAGraph] = {}
+        self.held: Dict[Any, Dict[str, int]] = {}
         self.pool = None
         self.stream = None
         self.replays = 0
@@ -252,7 +257,7 @@ def _step(state: LoopState, params, cfg: td3.TD3Config,
         respawn = drawn("respawn", lambda n: torch.randint(
             params.map_data.spawns.count, (n,),
             generator=s.vstate.generator, device=dev))
-    with record_function("td3.policy"):
+    with profiling.device_span("td3.policy", dev):
         noise = (s.noise + cfg.noise_theta * (cfg.noise_mean - s.noise)
                  + s.sigma[:, None] * eps)
         action = td3.select_action(s.td3_state, cfg, feat_seq, m_onehot,
@@ -266,7 +271,7 @@ def _step(state: LoopState, params, cfg: td3.TD3Config,
     }
     float_obs = loop_cfg.obs_dtype is not None and not (
         stack is not None and stack.observation_fns)
-    with record_function("td3.env_step"):
+    with profiling.device_span("td3.env_step", dev):
         vstate, obs, rew, term, trunc, info = vector.step(
             params, s.vstate, env_action, stack=stack,
             max_episode_steps=loop_cfg.max_episode_steps,
@@ -277,16 +282,16 @@ def _step(state: LoopState, params, cfg: td3.TD3Config,
         # the post-reset states vector.step would render
         render = (fenv.render_observation_batch if obs_render_fn is None
                   else obs_render_fn)
-        with record_function("td3.render"):
+        with profiling.device_span("td3.render", dev):
             obs = render(params, vstate.env, out_dtype=loop_cfg.obs_dtype)
-    with record_function("td3.encoder"):
+    with profiling.device_span("td3.encoder", dev):
         f = encoder_apply(obs).to(s.queue.dtype)
     queue = torch.cat([f[:, None], s.queue[:, :-1]], dim=1)
     rows = {"x": queue[:, 1:], "m": s.maneuver, "a": action,
             "r": rew[:, None].to(torch.float32), "x1": queue[:, :-1]}
     if dp is not None:
         rows = {k: dp.gather(v) for k, v in rows.items()}
-    with record_function("td3.replay_add"):
+    with profiling.device_span("td3.replay_add", dev):
         rb.add_batch(s.buf, rows, s.generator,
                      None if draw is None else draw["evict"])
 
@@ -294,7 +299,7 @@ def _step(state: LoopState, params, cfg: td3.TD3Config,
     losses = {"critic1_loss": zero, "critic2_loss": zero,
               "actor_loss": zero}
     for i, do_actor in enumerate(kind or ()):
-        with record_function("td3.update"):
+        with profiling.device_span("td3.update", dev):
             batch = rb.sample(s.buf, cfg.batch_size, s.generator,
                               None if draw is None else draw["sample"][i])
             batch["m"] = one_hot(batch["m"], cfg.maneuver_dim, net_dtype)
@@ -424,9 +429,11 @@ def chunk(
             _step(state, params, cfg, loop_cfg, encoder_apply, stack, kind,
                   rt, obs_render_fn, dp)
 
-        g = rt.graphs.get(kind) if use_graph else None
+        kind_graphs = rt.traced_graphs if profiling.enabled() else rt.graphs
+        g = kind_graphs.get(kind) if use_graph else None
         if g is not None:
             g.replay()
+            profiling.add_counts(rt.held.get(kind, {}))
             rt.replays += 1
             rt.replays_by_kind[kind] = rt.replays_by_kind.get(kind, 0) + 1
             continue
@@ -439,12 +446,15 @@ def chunk(
         if rt.stream is None:
             rt.stream = torch.cuda.Stream(dev)
         graphs.warm_up(run, stream=rt.stream)
-        g = graphs.capture(
-            run, kernel,
-            generators=(state.generator, state.vstate.generator),
-            pool=rt.pool, stream=rt.stream)
+        with profiling.held_counts() as held:
+            g = graphs.capture(
+                run, kernel,
+                generators=(state.generator, state.vstate.generator),
+                pool=rt.pool, stream=rt.stream)
         rt.pool = g.pool()
-        rt.graphs[kind] = g
+        kind_graphs[kind] = g
+        if profiling.enabled():
+            rt.held[kind] = held
         # the capture recorded the step index's increment, not run it
     state.filled_host, state.steps_host = filled, steps
     return state, {k: v.clone() for k, v in rt.out.items()}

@@ -26,11 +26,10 @@ from dataclasses import dataclass, fields, replace
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
-from torch.profiler import record_function
 
 from tinycarlo_torch import car as car_mod
 from tinycarlo_torch import env as fenv
-from tinycarlo_torch.utils import graphs
+from tinycarlo_torch.utils import graphs, profiling
 from tinycarlo_torch.wrapper.functional import WrapperStack
 
 # eager steps of a rollout on the card before its step is captured
@@ -112,6 +111,13 @@ def step(
     `respawn_rows` (B,) when given, else at rows drawn from the state's
     generator.
     """
+    with profiling.device_span("vector.step", state.episode_step.device):
+        return _step(params, state, action, stack, max_episode_steps, render,
+                     auto_reset, respawn_rows)
+
+
+def _step(params, state, action, stack, max_episode_steps, render,
+          auto_reset, respawn_rows):
     wrapped = stack is not None and (
         len(stack.reward_fns) > 0 or len(stack.termination_fns) > 0
     )
@@ -146,7 +152,7 @@ def step(
     )
     obs = None
     if render:
-        with record_function("vector.render"):  # a profiler range
+        with profiling.device_span("vector.render", episode_step.device):
             obs = fenv.render_observation_batch(params, env_state)
         if stack.observation_fns:  # tinycarlo_tpu/vector.py:147-150
             obs = stack.apply_observation(state.generator, obs)
@@ -189,8 +195,23 @@ def rollout(
     tensors are the graph's static ones. `stats`, if given, gains the
     counts "replays" and "captures" (a replayed render passes no kernel
     wrapper, so launch counts read eager renders plus captures).
+
+    Traced (utils/profiling.py): the call span "rollout" holds
+    "rollout.warmup" (the eager steps), "rollout.capture" and one
+    "rollout.replay" a replay on the host; each step, eager or replayed,
+    is the device span "rollout.step". The call captures its graph anew,
+    so tracing at call time decides whether the graph carries the marks.
     """
+    with profiling.span("rollout", call=True):
+        return _rollout(params, state, policy_fn, n_steps, stack,
+                        max_episode_steps, render, generator, info_keys,
+                        keep_obs, graph, stats)
+
+
+def _rollout(params, state, policy_fn, n_steps, stack, max_episode_steps,
+             render, generator, info_keys, keep_obs, graph, stats):
     generator = state.generator if generator is None else generator
+    device = state.episode_step.device
 
     def body(vs):
         obs = (fenv.render_observation_batch(params, vs.env)
@@ -213,7 +234,8 @@ def rollout(
 
     def eager():
         nonlocal state
-        state, out = body(state)
+        with profiling.device_span("rollout.step", device):
+            state, out = body(state)
         outs.append(out)
 
     if not use_graph:
@@ -221,24 +243,30 @@ def rollout(
             eager()
         return state, _stack(outs)
 
-    graphs.warm_up(eager, ROLLOUT_WARMUP)
+    with profiling.span("rollout.warmup"):
+        graphs.warm_up(eager, ROLLOUT_WARMUP)
     graphs.check_distinct(graphs.tensors(state), "rollout")
     n_rest = n_steps - ROLLOUT_WARMUP
     bufs = {k: torch.empty((n_rest, *v.shape), dtype=v.dtype,
                            device=v.device) for k, v in outs[-1].items()}
-    t = torch.zeros(1, dtype=torch.long, device=state.episode_step.device)
+    t = torch.zeros(1, dtype=torch.long, device=device)
 
     def captured():
-        new, out = body(state)
-        graphs.copy_into(state, new)
-        for k, v in out.items():
-            bufs[k].index_copy_(0, t, v[None])
-        t.add_(1)
+        with profiling.device_span("rollout.step", device):
+            new, out = body(state)
+            graphs.copy_into(state, new)
+            for k, v in out.items():
+                bufs[k].index_copy_(0, t, v[None])
+            t.add_(1)
 
-    g = graphs.capture(captured, fenv.render_kernel(params) if render
-                       else None, generators=(state.generator, generator))
+    # the host counts of the captured step count at each replay
+    with profiling.span("rollout.capture"), profiling.held_counts() as held:
+        g = graphs.capture(captured, fenv.render_kernel(params) if render
+                           else None, generators=(state.generator, generator))
     for _ in range(n_rest):
-        g.replay()
+        with profiling.span("rollout.replay"):
+            g.replay()
+        profiling.add_counts(held)
     if stats is not None:
         stats["replays"] = stats.get("replays", 0) + n_rest
         stats["captures"] = stats.get("captures", 0) + 1
