@@ -29,6 +29,14 @@ any failed check:
    counts[0] reaches, slots over 3-5 lane blocks at w = 300 and 640; the
    frame kernel on the same segments per (env, layer) frame).
    Bit-equality is required: the kernels are built with -fmad=false.
+   3b. the front kernel (ops/csrc/front.cu): its bundle against the torch
+   composition it replaces (`rasterize_kernels.front_plain`), all 8
+   tensors bit for bit, on the benchmark's two configurations (4096
+   simple_layout and 512 knuffingen spawn-table states), then each timed
+   in a replayed CUDA graph (the kernel also eagerly, back to back)
+   beside its bytes bound. Every later phase that counts render launches
+   holds the front kernel's to one a fast-stroke render: as many as the
+   masks and rank kernels' together (`check_front`).
 4. probe kernels: the output-floor probes of benchmarks/exp_r2.py (K8
    ovl, K9 fill, K10 skip) against their plain versions, bit for bit, on
    outputs pre-filled with a sentinel: N = 1, 7 and 4096 envs; KK = 0, 1,
@@ -62,8 +70,10 @@ any failed check:
    guard, then the bench body of tinycarlo_torch.benchmarks.bench
    (vector.step with Stanley actions and max_episode_steps=1000, the
    observation rendered every step and consumed by a checksum), eagerly.
-   The masks kernel's launch count must equal the renders. Reports
-   env-steps/s (median of repeats, with spread) and per-stage ms, the
+   The masks kernel's launch count, and the front kernel's, must equal
+   the renders. Reports env-steps/s (median of repeats, with spread) and
+   per-stage ms (the front kernel, which runs the projection and the
+   compaction, beside its plain version, the torch composition), the
    kernel alone also in back-to-back calls beside K9's fill and `fill_`
    of an output of its size (the store floor); then the last
    observation against the plain version on the same states and a small
@@ -72,9 +82,10 @@ any failed check:
    step captured once and replayed BENCH_CHUNK (400) times a repeat: its
    JSON line (bench.py's keys and `device`) and every repeat's rate in
    the order the repeats ran, each with the card's SM clock, memory
-   clock, power draw and temperature read after it, the masks kernel
-   launched once during capture, a profiler trace of TRACED (20) replays
-   holding one masks kernel record a step (and the device's idle share),
+   clock, power draw and temperature read after it, the front and masks
+   kernels launched once each during capture, a profiler trace of TRACED
+   (20) replays holding one front and one masks kernel record a step and
+   no sort kernel (and the device's idle share),
    then once the host's ms per replay call (replays enqueued while a spin
    kernel holds the card), and 8
    replayed steps equal bit for bit to 8 eager steps from the same state
@@ -212,7 +223,8 @@ any failed check:
       memory (functional numbers: ranks on one card, collectives through
       the host; not a scaling result).
    The kernels' launches on (a) and (b), summed over the ranks, go into
-   their entries as `launches_sp`.
+   their entries as `launches_sp`; the front kernel's launches on the
+   fast stroke's shards.
 18. host tools (the digital twin, real_world.TinyCarloRealWorldEnv, on
    the loopback backend; viz; the examples):
    a. the twin on examples/config_simple_layout.yaml (rgb 128x160) and on
@@ -237,9 +249,9 @@ any failed check:
       one maneuver), stanley_control --batch 4096 for 20 steps,
       benchmark_tinycar_net for one maneuver of 100 steps (cte_avg below
       0.02 m), render_map to a temporary PNG.
-   The masks and rank kernels' launches on these paths (each count set to
-   0 before a path and read after it; the plain checks apart) go into
-   their entries as `launches_host`.
+   The front, masks and rank kernels' launches on these paths (each
+   count set to 0 before a path and read after it; the plain checks
+   apart) go into their entries as `launches_host`.
 19. measurement scripts (tinycarlo_torch.benchmarks):
    a. BASELINE config 3 uncut (`baseline_configs.measure3`: knuffingen,
       480x640, 512 envs, maneuver (i + env) % 4, 100-step chunks, a warm
@@ -274,14 +286,17 @@ any failed check:
       every env's sigma equal to 0.4 * max(0, 1 - e / 60) at its episode
       count e, each chunk's env-steps/s, the graphs by kind with their
       replays, and a 5 x 200-step evaluation of maneuver 0 (printed).
-   The rank kernel's launches on (a) and (b) (its count set to 0 before
-   each and read after) go into its entry as `launches_train`.
-21. results: the `kernels` JSON line (K1-K10; the masks and rank kernels'
-   entries also give their launches on the IL phase's paths,
-   `launches_il`, on phase 18's, `launches_host`, and on config 3's
-   (19a), `launches_b3`, the rank kernel's on phase 20's,
-   `launches_train`, and the masks, rank and exact kernels' on phase
-   17's, `launches_sp`), the card line and, last, the `ok` JSON line.
+   The rank and front kernels' launches on (a) and (b) (their counts set
+   to 0 before each and read after) go into their entries as
+   `launches_train`.
+21. results: the `kernels` JSON line (K1-K10 and the front kernel, whose
+   entry gives phase 7's launches and phase 3b's times on simple_layout;
+   the masks, rank and front kernels' entries also give their launches
+   on the IL phase's paths, `launches_il`, on phase 18's,
+   `launches_host`, and on config 3's (19a), `launches_b3`, the rank and
+   front kernels' on phase 20's, `launches_train`, and the masks, rank,
+   exact and front kernels' on phase 17's, `launches_sp`), the card line
+   and, last, the `ok` JSON line.
 
 Every phase prints its seconds.
 
@@ -447,6 +462,29 @@ def back_to_back_ms(fns, calls=30, rounds=6):
             end.synchronize()
             times[name].append(start.elapsed_time(end) / calls)
     return {name: statistics.median(v) for name, v in times.items()}
+
+
+def graph_ms(fn, calls=30, replays=5):
+    """Median ms per call of fn() in a replayed CUDA graph of `calls`
+    calls (`graphs.warm_up`, then `graphs.capture`), CUDA events around
+    each replay: the device's time without the host's launch path."""
+    import torch
+
+    from tinycarlo_torch.utils import graphs
+
+    graphs.warm_up(fn)
+    graph = graphs.capture(lambda: [fn() for _ in range(calls)])
+    graph.replay()
+    times = []
+    for _ in range(replays):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
 
 
 class PhaseClock:
@@ -731,6 +769,8 @@ def main():
     exact_err = check_exact_kernels(rk, fenv, vector, params_exact, "cuda")
     soa_errs = check_soa_kernels(rk, "cuda")
     clock.done("kernels")
+    front_times = front_phase(card, rk, fenv)
+    clock.done("front kernel")
 
     # ---- 4. probe kernels against their plain versions ---------------------
     probe_errs = check_probe_kernels(pk, "cuda")
@@ -751,7 +791,7 @@ def main():
     # ---- 7. main path --------------------------------------------------------
     kernels = [classes_path(card, rk, fenv, vector, stanley_steering, params,
                             max_err, FAST_REPEATS)]
-    kernels[0].pop("run")
+    front = front_entry(front_times, kernels[0].pop("run")["front_launches"])
     clock.done("main path")
 
     # ---- 8. bench, replayed as a CUDA graph ----------------------------------
@@ -774,7 +814,7 @@ def main():
         kernels.append(exact_entry)
         serve_exact(card, pool)
         clock.done("exact serving")
-    kernels += soa_entries + probe_entries
+    kernels += [front] + soa_entries + probe_entries
 
     # ---- 12. the masks, rank and exact kernels at 480x640 -------------------
     kernels_480x640(card, rk)
@@ -804,7 +844,7 @@ def main():
     for entry in kernels:
         if entry["name"] in sp_launches:
             entry["launches_sp"] = sp_launches[entry["name"]]
-    for kernel_name in ("masks", "rank", "exact"):
+    for kernel_name in ("masks", "rank", "exact", "front"):
         check(sp_launches.get(kernel_name, 0) > 0,
               f"scale-out: the {kernel_name} kernel was not launched")
     clock.done("scale-out")
@@ -812,16 +852,16 @@ def main():
     # ---- 18. the host tools: the twin, the overview, the examples --------------
     host_launches = host_tools_phase(card, rk, ras)
     for entry in kernels:
-        if entry["name"] in ("masks", "rank"):
+        if entry["name"] in ("masks", "rank", "front"):
             entry["launches_host"] = host_launches[entry["name"]]
     clock.done("host tools")
 
     # ---- 19. the measurement scripts: BASELINE config 3, the profiles -------
     b3_launches, b3_ms = measurement_scripts(card, rk, ras)
     for entry in kernels:
-        if entry["name"] in ("masks", "rank"):
+        if entry["name"] in ("masks", "rank", "front"):
             entry["launches_b3"] = b3_launches.get(entry["name"], 0)
-    for kernel_name in ("masks", "rank"):
+    for kernel_name in ("masks", "rank", "front"):
         check(b3_launches.get(kernel_name, 0) > 0, f"config 3: the "
               f"{kernel_name} kernel was not launched")
     print("config 3 kernels at 480x640 on the run's bundles (ms alone, ms "
@@ -831,8 +871,8 @@ def main():
     # ---- 20. training to a policy: the IL run, the TD3 command cut ---------
     train_launches = training_phase(card, rk)
     for entry in kernels:
-        if entry["name"] == "rank":
-            entry["launches_train"] = train_launches["rank"]
+        if entry["name"] in ("rank", "front"):
+            entry["launches_train"] = train_launches[entry["name"]]
     check(train_launches["rank"] > 0, "training: the rank kernel was not "
           "launched")
     clock.done("training to a policy")
@@ -849,6 +889,106 @@ def main():
     return 0
 
 
+# the benchmark's configurations and their rollout cells' batches
+FRONT_CELLS = (("simple_layout-128x160", 4096), ("knuffingen-480x640", 512))
+
+
+def front_args(fenv, rk, params, states):
+    """The front kernel's arguments for these states as the main path's
+    render gives them (env._render): `rk.front_kernel(*args)`, or its
+    plain version `rk.front_plain(*args)`."""
+    md = params.map_data
+    cam = params.cfg.camera
+    return (md.packed_nodes, md.packed_edges, md.packed_edge_mask,
+            md.packed_edge_layer, fenv._camera_pose(params, states),
+            params.camera.K, md.n_layers, tuple(cam.resolution),
+            cam.line_thickness, cam.max_range,
+            rk._budget(md.packed_edges.shape[1], cam.resolution[1],
+                       cam.max_visible_segments),
+            md.packed_layer_bounds)
+
+
+def check_front(launches, what):
+    """The front kernel runs in front of every masks or rank launch of a
+    render (the fast stroke) and of no other: in {kernel name: launches}
+    counted over renders alone, its count is theirs together."""
+    want = launches.get("masks", 0) + launches.get("rank", 0)
+    check(launches.get("front", 0) == want, f"{what}: the front kernel "
+          f"launched {launches.get('front', 0)} times beside {want} masks "
+          f"and rank launches ({launches})")
+
+
+def front_phase(card, rk, fenv):
+    """Phase 3b: the front kernel against `front_plain` on each of
+    FRONT_CELLS' spawn-table states, bit for bit, then both timed in
+    replayed CUDA graphs of 30 calls (device time, as in the rollout's
+    graph; `eager_ms`: the kernel's eager back-to-back calls, which the
+    host's launch path bounds) beside the kernel's bound: the bundle
+    written once (idx, 5 float32 and 1 int32 payload arrays, counts) and
+    the poses and the map read once. Returns {config: its times}."""
+    import torch
+
+    times = {}
+    for name, n in FRONT_CELLS:
+        path = os.path.join(REPO, "portbench", "configs", f"{name}.json")
+        with open(path) as f:
+            cfg = json.load(f)["config"]
+        cfg["map"]["json_path"] = os.path.join(os.path.dirname(path),
+                                               cfg["map"]["json_path"])
+        params = fenv.make_env_params(cfg)
+        rows = torch.arange(n, device="cuda") % params.map_data.spawns.count
+        state, _, _ = fenv.reset(params, n, spawn_row=rows, render=False)
+        args = front_args(fenv, rk, params, state)
+        got = rk.front_kernel(*args)
+        want = rk.front_plain(*args)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            check(g.shape == w.shape and torch.equal(
+                g.view(torch.int32), w.view(torch.int32)),
+                f"front kernel: {name}'s bundle differs from front_plain")
+        ms = {name: graph_ms(fn) for name, fn in (
+            ("kernel", lambda: rk.front_kernel(*args)),
+            ("plain", lambda: rk.front_plain(*args)))}
+        eager = back_to_back_ms({"kernel": lambda: rk.front_kernel(*args)})
+        n_bytes = sum(t.numel() * t.element_size() for t in got) + sum(
+            t.numel() * t.element_size() for t in args[:6])
+        least, kind, _, _ = bound(n_bytes, 0)
+        times[name] = {"ms": ms["kernel"], "plain_ms": ms["plain"],
+                       "bound_ms": least, "bound_by": kind}
+        print("front kernel: " + json.dumps({
+            "config": name, "envs": n, "copies": got[1].shape[1],
+            "live": int(got[-1][0].sum()), "ms": round(ms["kernel"], 4),
+            "bound_ms": round(least, 4), "bound": kind, "bytes": n_bytes,
+            "plain_ms": round(ms["plain"], 4),
+            "eager_ms": round(eager["kernel"], 4), "card": card}))
+    return times
+
+
+def front_entry(times, launches):
+    """The front kernel's entry of the `kernels` line: the main path's
+    (phase 7) launches, and phase 3b's times on simple_layout, the main
+    path's map, beside its plain version."""
+    t = times["simple_layout-128x160"]
+    return {
+        "name": "front",
+        "route": "cuda",
+        "source": "tinycarlo_torch/ops/csrc/front.cu",
+        "replaces": "tinycarlo_tpu/env.py:189 (_project_packed_batch_soa),"
+                    " tinycarlo_tpu/ops/rasterize_pallas.py:886 "
+                    "(compact_env_idx_soa)",
+        "launches": launches,
+        # its bundle is held bit-equal to the plain version's (phase 3b)
+        "max_abs_err": 0,
+        "ms": t["ms"],
+        "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"],
+        # no single PyTorch call projects and compacts segments into the
+        # masks kernel's bundle, so there is no library yardstick
+        "library_ms": None,
+    }
+
+
 def classes_path(card, rk, fenv, vector, stanley_steering, params, err,
                  repeats):
     """Phases 7 and 9: the bench workload on the params' stroke, its
@@ -859,7 +999,8 @@ def classes_path(card, rk, fenv, vector, stanley_steering, params, err,
     compact, kernel, plain, symbol = kernel_pair(rk, params)
     exact = kernel is rk.exact_kernel
     what = "exact classes" if exact else "main path"
-    for k in (rk.masks_kernel, rk.rank_kernel, rk.exact_kernel):
+    for k in (rk.masks_kernel, rk.rank_kernel, rk.exact_kernel,
+              rk.front_kernel):
         k.launches = 0
     torch.cuda.reset_peak_memory_stats()
     run = run_main_path(fenv, vector, params, N_ENVS, CHUNK, repeats)
@@ -869,6 +1010,10 @@ def classes_path(card, rk, fenv, vector, stanley_steering, params, err,
     check(launches == renders,
           f"{kernel.NAME} kernel launched {launches} times for {renders} "
           "renders")
+    run["front_launches"] = rk.front_kernel.launches
+    check(run["front_launches"] == (0 if exact else renders),
+          f"the front kernel launched {run['front_launches']} times for "
+          f"{renders} {what} renders")
     others = [k.NAME for k in (rk.masks_kernel, rk.rank_kernel,
                                rk.exact_kernel)
               if k is not kernel and k.launches]
@@ -876,7 +1021,8 @@ def classes_path(card, rk, fenv, vector, stanley_steering, params, err,
     check(run["checksum"] > 0, "observations were not rendered")
     rates = sorted(run["rates"])
     print(f"{what}: {N_ENVS} envs x {renders} steps, {launches} "
-          f"{kernel.NAME} kernel launches, checksum {run['checksum']}")
+          f"{kernel.NAME} kernel launches, {run['front_launches']} front "
+          f"kernel launches, checksum {run['checksum']}")
     print(f"{what} env-steps/s: median {statistics.median(rates):.1f} "
           f"(min {rates[0]:.1f}, max {rates[-1]:.1f}, {repeats} repeats of "
           f"{CHUNK} steps) on {card}; peak memory {peak_gb:.2f} GB")
@@ -892,8 +1038,11 @@ def classes_path(card, rk, fenv, vector, stanley_steering, params, err,
     fmt = lambda x: "not measured" if x is None else f"{x:.4f} ms"  # noqa
     print(f"{what} per step at {N_ENVS} envs on {card}, event ms / "
           "device-busy ms:")
-    for key in ("projection", "compaction", "kernel", "step"):
+    for key in times["stages"]:
         print(f"  {key}: {times[key]:.4f} ms / {fmt(times[key + '_device'])}")
+    if "front_plain" in times:
+        print(f"  plain version of the front kernel (the projection and "
+              f"compaction as torch ops): {times['front_plain']:.4f} ms")
     print(f"  plain version of the {kernel.NAME} kernel: "
           f"{times['plain']:.4f} ms")
     b2b = times["back_to_back"]
@@ -1585,14 +1734,16 @@ def graph_bench(card, rk):
     respawns (max_episode_steps 3), the generator advanced as far."""
     from tinycarlo_torch.benchmarks import bench as pbench
 
-    kernels = (rk.masks_kernel, rk.rank_kernel, rk.exact_kernel)
+    kernels = (rk.masks_kernel, rk.rank_kernel, rk.exact_kernel,
+               rk.front_kernel)
     for k in kernels:
         k.launches = 0
     result = pbench.measure("cuda")
     launched = {k.NAME: k.launches for k in kernels}
-    check(launched == {"masks": pbench.WARMUP + 1, "rank": 0, "exact": 0},
+    check(launched == {"masks": pbench.WARMUP + 1, "rank": 0, "exact": 0,
+                       "front": pbench.WARMUP + 1},
           f"bench launches {launched}: not {pbench.WARMUP} warm-up steps and "
-          "one captured step of the masks kernel")
+          "one captured step of the front and masks kernels")
     line = pbench.result_line(result, pbench.N_ENVS, pbench.REPEATS, card)
     keys = {"metric", "value", "unit", "vs_baseline",
             "baseline_reference_steps_per_s", "baseline_measured_live",
@@ -1618,6 +1769,12 @@ def graph_bench(card, rk):
     busy_ms, top, by_name, traced_ms = device_profile(graph.replay,
                                                       calls=TRACED)
     masks_ms = kernel_device_ms(by_name, "masks_kernel")
+    front_ms = kernel_device_ms(by_name, "front_kernel")
+    sorts = [key[:60] for key in by_name if "sort" in key.lower()
+             or "topk" in key.lower()]
+    check(not sorts, f"bench: the replayed step sorts: {sorts}")
+    check(front_ms is not None, f"bench: a trace of {TRACED} replays does "
+          "not hold one front kernel record a step")
     if busy_ms is None or masks_ms is None:
         held = {key[:60]: count for key, (_, count) in by_name.items()
                 if "masks" in key}
@@ -1631,8 +1788,9 @@ def graph_bench(card, rk):
           f"traced: wall {traced_ms:.4f} ms, device busy {busy_ms:.4f} ms, "
           f"idle share {1 - busy_ms / traced_ms:.4f}, "
           f"{sum(c for _, c in by_name.values()):g} kernel records a step; "
-          f"masks kernel {masks_ms:.4f} ms device, one record a step over "
-          f"{TRACED} traced replays")
+          f"masks kernel {masks_ms:.4f} ms device, front kernel "
+          f"{front_ms:.4f} ms device, one record each a step over "
+          f"{TRACED} traced replays, no sort kernel")
     for key, ms, count in top:
         print(f"  {ms:.4f} ms/step x{count}: {key}")
     # once, after the timed repeats and the trace: what enqueuing one
@@ -1825,12 +1983,38 @@ def kernel_device_ms(by_name, symbol):
     return hits[0][0]
 
 
+def render_front_stages(fenv, rk, params, states):
+    """The stages in front of the render kernel, as the main path runs
+    them, by name: under the fast stroke the front kernel (the projection
+    and the compaction in one launch), under the exact stroke the
+    projection and `compact_env_exact_soa`."""
+    if fenv.render_kernel(params) is not rk.exact_kernel:
+        return {"front kernel": lambda: rk.front_kernel(
+            *front_args(fenv, rk, params, states))}
+    proj = fenv._project_packed_batch_soa(params, states)
+    return {
+        "projection": lambda: fenv._project_packed_batch_soa(params, states),
+        "compaction": lambda: bench_bundle(fenv, rk, params, None,
+                                           projection=proj),
+    }
+
+
+def front_plain_ms(fenv, rk, params, states):
+    """{"front_plain": ms} of the front kernel's plain version (the torch
+    composition) on these states under the fast stroke, else {}."""
+    if fenv.render_kernel(params) is rk.exact_kernel:
+        return {}
+    return {"front_plain": cuda_ms(lambda: rk.front_plain(
+        *front_args(fenv, rk, params, states)))}
+
+
 def stage_times(fenv, vector, rk, params, vstate):
-    """Per-stage ms of one render and one step at the classes path's batch:
-    stream time between CUDA events ("ms", which includes the gaps while
-    the host enqueues eager kernels) and device-busy time from a profiler
-    trace ("device_ms"; the kernel's comes from the whole step's trace,
-    see kernel_device_ms)."""
+    """Per-stage ms of one render and one step at the classes path's batch
+    (`render_front_stages`, the kernel, the step; their names in order
+    under "stages"): stream time between CUDA events ("ms", which
+    includes the gaps while the host enqueues eager kernels) and
+    device-busy time from a profiler trace ("device_ms"; the kernel's
+    comes from the whole step's trace, see kernel_device_ms)."""
     import torch
 
     md = params.map_data
@@ -1838,20 +2022,17 @@ def stage_times(fenv, vector, rk, params, vstate):
     t = params.cfg.camera.line_thickness
     _, kernel, plain, _ = kernel_pair(rk, params)
     n = vstate.episode_step.shape[0]
-    proj = fenv._project_packed_batch_soa(params, vstate.env)
-    bundle = bench_bundle(fenv, rk, params, vstate.env, projection=proj)
+    bundle = bench_bundle(fenv, rk, params, vstate.env)
     action = {"car_control": torch.full((n, 2), SPEED, device="cuda"),
               "maneuver": torch.zeros(n, dtype=torch.int32, device="cuda")}
     stages = {
-        "projection": lambda: fenv._project_packed_batch_soa(
-            params, vstate.env),
-        "compaction": lambda: bench_bundle(fenv, rk, params, None,
-                                           projection=proj),
+        **render_front_stages(fenv, rk, params, vstate.env),
         "kernel": lambda: kernel(bundle, md.n_layers, res, t),
         "step": lambda: vector.step(params, vstate, action, render=False,
                                     max_episode_steps=1000),
     }
-    out = {"bundle": bundle}
+    out = {"bundle": bundle, "stages": list(stages),
+           **front_plain_ms(fenv, rk, params, vstate.env)}
     for key, fn in stages.items():
         out[key] = cuda_ms(fn, repeats=20 if key == "kernel" else 7)
         if key != "kernel":  # its device ms: see kernel_device_ms
@@ -1998,7 +2179,8 @@ def protocol_maneuver(stroke, maneuver, steps, episodes, sequential):
     if stroke not in _WORKER_SETUP:
         _WORKER_SETUP[stroke] = serving_setup(stroke)
     params, act, model = _WORKER_SETUP[stroke]
-    kernels = (rk.masks_kernel, rk.rank_kernel, rk.exact_kernel)
+    kernels = (rk.masks_kernel, rk.rank_kernel, rk.exact_kernel,
+               rk.front_kernel)
     for k in kernels:
         k.launches = 0
     stats = {}
@@ -2062,8 +2244,9 @@ def serving_protocol(pool, params, act, kernel, steps, episodes, budget_s,
               f"for {renders} renders, {g['replays']} of them replayed and "
               f"{g['captures']} captures")
         others = [name for name, count in launches.items()
-                  if name != kernel.NAME and count]
+                  if name not in (kernel.NAME, "front") and count]
         check(not others, f"the rgb path ran the {others} kernel")
+        check_front(launches, f"serving maneuver {maneuver}")
         print(
             f"Maneuver {maneuver} -> Total reward: {r['total_reward']:.2f} | "
             f"CTE: {r['cte_avg']:.4f} m/step var: {r['cte_var']:.4f} | "
@@ -2091,7 +2274,9 @@ def serving_batch(card, params, act, kernel, repeats):
     from tinycarlo_torch.ops import rasterize_kernels as rk
     from tinycarlo_torch.train.evaluate import evaluate
 
-    for k in (rk.masks_kernel, rk.rank_kernel, rk.exact_kernel):
+    kernels = (rk.masks_kernel, rk.rank_kernel, rk.exact_kernel,
+               rk.front_kernel)
+    for k in kernels:
         k.launches = 0
     stats = {"replays": 0, "captures": 0}
     with warnings.catch_warnings(record=True) as caught:
@@ -2118,10 +2303,11 @@ def serving_batch(card, params, act, kernel, repeats):
           f"{kernel.NAME} kernel launched {launches} times for {renders} "
           f"renders, {stats['replays']} of them replayed and "
           f"{stats['captures']} captures")
-    others = [k.NAME for k in (rk.masks_kernel, rk.rank_kernel,
-                               rk.exact_kernel)
-              if k is not kernel and k.launches]
+    others = [k.NAME for k in kernels
+              if k not in (kernel, rk.front_kernel) and k.launches]
     check(not others, f"the rgb path ran the {others} kernel")
+    check_front({k.NAME: k.launches for k in kernels},
+                f"{kernel.NAME} serving")
     rates.sort()
     print(f"{kernel.NAME} serving: {N_ENVS} envs x {renders} steps, "
           f"{launches} {kernel.NAME} kernel launches")
@@ -2184,9 +2370,10 @@ def serve(card, rank_err, pool):
     fmt = lambda x: "not measured" if x is None else f"{x:.4f} ms"  # noqa
     print(f"serving per step at {N_ENVS} envs on {card}, event ms / "
           f"device-busy ms:")
-    for key in ("projection", "compaction", "rank kernel", "rgb composite",
-                "policy", "step"):
+    for key in times["stages"]:
         print(f"  {key}: {times[key]:.4f} ms / {fmt(times[key + '_device'])}")
+    print(f"  plain version of the front kernel (the projection and "
+          f"compaction as torch ops): {times['front_plain']:.4f} ms")
     print(f"  plain version of the rank kernel: {times['plain']:.4f} ms")
     b2b = times["back_to_back"]
     print(f"  rank kernel alone in back-to-back calls: {b2b['kernel']:.4f} "
@@ -2267,31 +2454,29 @@ def serving_stage_times(fenv, vector, rk, ras, params, vstate, act, stack,
                         m):
     """Per-stage ms of one serving step at 4096 envs: event ms and profiler
     device ms (see stage_times; the rank kernel's device ms comes from the
-    whole step's trace), and the rank kernel's plain version."""
+    whole step's trace), and the front and rank kernels' plain
+    versions."""
     import torch
 
     md = params.map_data
     res = tuple(params.cfg.camera.resolution)
     t = params.cfg.camera.line_thickness
     n = m.shape[0]
-    proj = fenv._project_packed_batch_soa(params, vstate.env)
-    bundle = bench_bundle(fenv, rk, params, vstate.env, projection=proj)
+    bundle = bench_bundle(fenv, rk, params, vstate.env)
     rank = rk.rank_kernel(bundle, md.n_layers, res, t)
     obs = ras.rgb_from_rank(rank, md.laneline_colors)
     action = {"car_control": torch.full((n, 2), 0.35, device=m.device),
               "maneuver": m}
     stages = {
-        "projection": lambda: fenv._project_packed_batch_soa(
-            params, vstate.env),
-        "compaction": lambda: bench_bundle(fenv, rk, params, None,
-                                           projection=proj),
+        **render_front_stages(fenv, rk, params, vstate.env),
         "rank kernel": lambda: rk.rank_kernel(bundle, md.n_layers, res, t),
         "rgb composite": lambda: ras.rgb_from_rank(rank, md.laneline_colors),
         "policy": lambda: act(obs, m, None),
         "step": lambda: vector.step(params, vstate, action, stack=stack,
                                     render=False),
     }
-    out = {"bundle": bundle}
+    out = {"bundle": bundle, "stages": list(stages),
+           **front_plain_ms(fenv, rk, params, vstate.env)}
     for key, fn in stages.items():
         out[key] = cuda_ms(fn, repeats=20 if key == "rank kernel" else 7)
         if key != "rank kernel":  # its device ms: see kernel_device_ms
@@ -2662,6 +2847,8 @@ def td3_bench_runs(card, rk):
               f"td3 {n} {dtype}: {r['launches']} masks-kernel launches for "
               f"{r['renders']} renders, {r['replays']} replayed and "
               f"{r['captures']} captures")
+        check_front({"masks": r["launches"], "front": r["front_launches"]},
+                    f"td3 {n} {dtype}")
         check(not traced or r["render_kernel_records_per_step"] == 1,
               f"td3 {n} {dtype}: {r['render_kernel_records_per_step']} "
               "masks-kernel records a step in a traced chunk")
@@ -2962,7 +3149,8 @@ def il_collect(card, rk, ras, params, cfg):
     from tinycarlo_torch import env as fenv
     from tinycarlo_torch.train import il
 
-    for k in (rk.masks_kernel, rk.rank_kernel, rk.exact_kernel):
+    for k in (rk.masks_kernel, rk.rank_kernel, rk.exact_kernel,
+              rk.front_kernel):
         k.launches = 0
     g = torch.Generator(device="cuda").manual_seed(0)
     coll = il.Collector(params, cfg, IL_ENVS, IL_CHUNK_STEPS)
@@ -3020,6 +3208,8 @@ def il_collect(card, rk, ras, params, cfg):
           f"il collection: {st['replays']} replays")
     check(rk.masks_kernel.launches == 0 and rk.exact_kernel.launches == 0,
           "il collection (rgb) launched the masks or exact kernel")
+    front = rk.front_kernel.launches
+    check_front({"rank": launches, "front": front}, "il collection")
     # the rank kernel on the last graph chunk's final states, through the
     # collector's randomized camera
     p = coll.params
@@ -3030,13 +3220,16 @@ def il_collect(card, rk, ras, params, cfg):
     # kernel (the rank check above launched it once, not counted)
     classes = il.Collector(fenv.make_env_params(CONFIG), cfg, IL_ENVS,
                            IL_CHUNK_STEPS)
-    rk.masks_kernel.launches = 0
+    rk.masks_kernel.launches = rk.front_kernel.launches = 0
     traj = classes.chunk(1, g)
     sc = classes.stats
     check(rk.masks_kernel.launches == sc["renders"] + sc["captures"]
           and bool(traj["obs"].any()),
           f"il classes chunk: {rk.masks_kernel.launches} masks-kernel "
           f"launches for {sc}")
+    check_front({"masks": rk.masks_kernel.launches,
+                 "front": rk.front_kernel.launches}, "il classes chunk")
+    front += rk.front_kernel.launches
     print(f"il collection: rank kernel {launches} launches ({st['renders']} "
           f"+ {se['renders']} eager renders, {st['captures']} capture; "
           f"{st['replays']} replays apart), bit-equal to its plain version "
@@ -3044,7 +3237,8 @@ def il_collect(card, rk, ras, params, cfg):
           f"kernel {rk.masks_kernel.launches} launches, {sc['replays']} "
           "replays")
     data = (torch.cat(xs), torch.cat(ms), torch.cat(ys))
-    return data, {"rank": launches, "masks": rk.masks_kernel.launches}
+    return data, {"rank": launches, "masks": rk.masks_kernel.launches,
+                  "front": front}
 
 
 def il_data(X, M, Y):
@@ -3138,12 +3332,13 @@ def il_replays(params, cfg, data):
 
 
 def il_dagger(card, rk, params, cfg, model):
-    """(d): one DAgger chunk through the graph."""
+    """(d): one DAgger chunk through the graph. Returns its launches by
+    kernel."""
     import torch
 
     from tinycarlo_torch.train import il
 
-    rk.rank_kernel.launches = 0
+    rk.rank_kernel.launches = rk.front_kernel.launches = 0
     coll = il.Collector(params, cfg, IL_ENVS, IL_CHUNK_STEPS, model=model)
     torch.cuda.synchronize()
     start = time.perf_counter()
@@ -3154,13 +3349,16 @@ def il_dagger(card, rk, params, cfg, model):
     st = coll.stats
     check(rk.rank_kernel.launches == st["renders"] + st["captures"],
           f"il dagger: {rk.rank_kernel.launches} launches for {st}")
+    launches = {"rank": rk.rank_kernel.launches,
+                "front": rk.front_kernel.launches}
+    check_front(launches, "il dagger")
     check(bool(torch.isfinite(y).all()) and y.std().item() > 0,
           "il dagger: labels not finite or constant")
     print(f"il dagger chunk (capture): {y.numel()} samples in "
           f"{secs * 1e3:.1f} ms, {y.numel() / secs:.1f} samples/s on {card};"
           f" rank kernel {rk.rank_kernel.launches} launches, "
           f"{st['replays']} replays")
-    return rk.rank_kernel.launches
+    return launches
 
 
 def il_checkpoint(state, data):
@@ -3243,7 +3441,7 @@ def il_phase(card, rk, ras):
                                      seed=1), cfg, data)
     clock.done("  il training")
     il_replays(params, cfg, data)
-    launches["rank"] += il_dagger(card, rk, params, cfg, state.model)
+    add_launches(launches, il_dagger(card, rk, params, cfg, state.model))
     il_checkpoint(state, data)
     clock.done("  il graphs, dagger, checkpoint")
     il_card_vs_cpu(params, cfg)
@@ -3513,7 +3711,8 @@ def scaleout_work(rank, world, init_file):
         ref = fenv.render_observation_batch(params, states, fmt=fmt)[rows]
         cases.append((name, params, fmt, states, ref))
     # the main path: the counts from 0
-    kernels = (rk.masks_kernel, rk.rank_kernel, rk.exact_kernel)
+    kernels = (rk.masks_kernel, rk.rank_kernel, rk.exact_kernel,
+               rk.front_kernel)
     for k in kernels:
         k.launches = 0
     for name, params, fmt, states, ref in cases:
@@ -3640,8 +3839,8 @@ def scaleout_phase(card):
         check(res["obs_sha"] == r0["single_obs_sha"][d],
               f"scale-out chunk: rank {rank}'s first-step frames differ "
               "from the single-process chunk's")
-        for k, n in res["launches"].items():
-            launches[k] = launches.get(k, 0) + n
+        check_front(res["launches"], f"scale-out rank {rank}")
+        add_launches(launches, res["launches"])
         shards = ", ".join(f"{n}: {k} kernel on {c} live copies equal to "
                            f"its plain version" for n, (k, c)
                            in res["shards"].items())
@@ -3684,13 +3883,29 @@ TD3_EXAMPLE = ["--envs", "64", "--chunks", "2", "--steps", "100",
 
 
 def counted(rk, fn):
-    """fn()'s result and the render kernels' launches in it: each count
-    set to 0 just before and read just after."""
-    kernels = (rk.masks_kernel, rk.rank_kernel, rk.exact_kernel)
-    for k in kernels:
+    """fn()'s result and the render kernels' launches in it
+    (`gym_env.RENDER_KERNELS`): each count set to 0 just before and read
+    just after; fn() renders, so the front kernel's count must be the
+    masks and rank kernels' together (`check_front`)."""
+    from tinycarlo_torch.gym_env import RENDER_KERNELS
+
+    for k in RENDER_KERNELS:
         k.launches = 0
     out = fn()
-    return out, {k.NAME: k.launches for k in kernels}
+    launches = {k.NAME: k.launches for k in RENDER_KERNELS}
+    check_front(launches, "a counted run")
+    return out, launches
+
+
+def render_launches(fenv, params, n):
+    """{kernel name: launches} of n renders of `params` on the card: n of
+    each kernel a render launches (`env.render_kernels`), 0 of the
+    others."""
+    from tinycarlo_torch.gym_env import RENDER_KERNELS
+
+    want = {k.NAME: 0 for k in RENDER_KERNELS}
+    want.update((k.NAME, n) for k in fenv.render_kernels(params))
+    return want
 
 
 def add_launches(total, launches):
@@ -3712,10 +3927,10 @@ def twin_runs(card, rk, tb, gb, name, launches):
         add_launches(launches, got)
         captures = len(env._graphs)
         want = r["renders"] - env.replays + captures
-        check(got[kernel.NAME] == want and sum(got.values()) == want,
+        check(got == render_launches(fenv, env.params, want),
               f"twin {name} {mode}: launches {got}, not {want} of "
-              f"{kernel.NAME} ({r['renders']} renders, {env.replays} "
-              f"replays, {captures} captures)")
+              f"{kernel.NAME} and front ({r['renders']} renders, "
+              f"{env.replays} replays, {captures} captures)")
         check(mode != "graph" or env.replays == TWIN_STEPS,
               f"twin {name}: {env.replays} replays of {TWIN_STEPS} steps")
         print(f"twin {name} ({env.observation_space_format}) {mode}: "
@@ -3983,9 +4198,9 @@ def config3_phase(card, rk, ras, fmt, launches):
     params = result["params"]
     kernel = fenv.render_kernel(params)
     want = bc.WARMUP + 1
-    check(got[kernel.NAME] == want and sum(got.values()) == want,
+    check(got == render_launches(fenv, params, want),
           f"config 3 {fmt}: launches {got}, not {bc.WARMUP} eager steps and "
-          f"one capture of the {kernel.NAME} kernel")
+          f"one capture of the front and {kernel.NAME} kernels")
     print("config 3: " + json.dumps(bc.line3(result, bc.N_ENVS3, fmt, card)))
     print(f"config 3 {fmt}: {bc.N_ENVS3} envs x {bc.CHUNK3} replays a chunk, "
           f"chunks in order (env-steps/s): "

@@ -708,17 +708,18 @@ def test_gym_graph_matches_eager():
 
 @pytest.mark.parametrize("name", ["config1", "simple_layout"])
 def test_gym_launches_equal_renders(name):
-    """The masks (classes) or rank (rgb) kernel's wrapper counts one launch
-    a render that ran eagerly (the resets and the first step) and one for
-    the capture, which records the launch every replay runs; replays pass
-    no wrapper, and each step after the first is one."""
+    """The masks (classes) or rank (rgb) kernel's wrapper, and the front
+    kernel's in front of it, count one launch a render that ran eagerly
+    (the resets and the first step) and one for the capture, which
+    records the launch every replay runs; replays pass no wrapper, and
+    each step after the first is one."""
     _require_cuda()
     from tinycarlo_torch.benchmarks import gym_bench as gb
 
     r = gb.measure(name, "graph", steps=30)
     kernel = "masks" if r["format"] == "classes" else "rank"
-    want = {"masks": 0, "rank": 0, "exact": 0}
-    want[kernel] = r["renders"] - r["replays"] + 1
+    want = {"front": 0, "masks": 0, "rank": 0, "exact": 0}
+    want[kernel] = want["front"] = r["renders"] - r["replays"] + 1
     assert r["replays"] == 30 and r["captures"] == 1
     assert r["launches"] == r["want_launches"] == want
 
@@ -744,7 +745,8 @@ def test_twin_launches_equal_renders():
     r = tb.measure("simple_layout", "graph", steps=30)
     assert r["replays"] == 30 and r["captures"] == 1
     assert r["launches"] == r["want_launches"]
-    assert r["launches"]["rank"] == r["renders"] - 30 + 1
+    assert r["launches"]["rank"] == r["launches"]["front"] == (
+        r["renders"] - 30 + 1)
 
 
 def test_gym_update_params_reaches_the_graph():
@@ -1156,9 +1158,11 @@ def _sp_rank(rank, init_file, out_dir):
         states = vector.reset(params, 64, seed=3, render=False)[0].env
         want = fenv.render_observation_batch(params, states)
         kernel = fenv.render_kernel(params)
-        before = kernel.launches
+        before = kernel.launches, rk.front_kernel.launches
         got = render_observation_batch_sp(params, states, mesh, fmt=fmt)
-        out[fmt] = (bool(torch.equal(got, want)), kernel.launches - before,
+        out[fmt] = (bool(torch.equal(got, want)),
+                    (kernel.launches - before[0],
+                     rk.front_kernel.launches - before[1]),
                     int((want > 0).sum()))
     torch.save(out, os.path.join(out_dir, f"sp_{rank}.pt"))
     torch.distributed.destroy_process_group()
@@ -1166,8 +1170,8 @@ def _sp_rank(rank, init_file, out_dir):
 
 def test_sp_render_two_ranks(tmp_path):
     """Two gloo ranks share the one card (model = 2): each launches the
-    masks or rank kernel once on its edge shard, and the composed frame
-    equals the unsharded render bit for bit."""
+    front kernel and the masks or rank kernel once on its edge shard, and
+    the composed frame equals the unsharded render bit for bit."""
     _require_cuda()
     import multiprocessing
 
@@ -1187,7 +1191,7 @@ def test_sp_render_two_ranks(tmp_path):
     for r in range(2):
         out = torch.load(tmp_path / f"sp_{r}.pt", weights_only=False)
         for fmt, (equal, launches, lit) in out.items():
-            assert equal and launches == 1 and lit > 0, (r, fmt)
+            assert equal and launches == (1, 1) and lit > 0, (r, fmt)
 
 
 def test_config3_graph_matches_eager():
@@ -1391,3 +1395,166 @@ def test_tracer_leaves_rollout_and_gym_outputs():
         assert np.array_equal(a[0], b[0]) and a[1:] == b[1:]
     waits = [s for s in tr.spans if s.name == "gym.wait" and s.call_id]
     assert len(waits) == 30 and all(s.end_ns > s.start_ns for s in waits)
+
+
+# ---- the render's front end (ops/csrc/front.cu) ----------------------------
+
+def _front_params(name, thickness=None, resolution=None,
+                  dtype=torch.float32):
+    """The benchmark's configuration `name` on the card, its camera's
+    thickness or resolution replaced when given."""
+    import json
+
+    from tinycarlo_torch import env as fenv
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    path = os.path.join(repo, "portbench", "configs", f"{name}.json")
+    with open(path) as f:
+        cfg = json.load(f)["config"]
+    cfg["map"]["json_path"] = os.path.join(os.path.dirname(path),
+                                           cfg["map"]["json_path"])
+    if thickness is not None:
+        cfg["camera"]["line_thickness"] = thickness
+    if resolution is not None:
+        cfg["camera"]["resolution"] = list(resolution)
+    return fenv.make_env_params(cfg, dtype=dtype, device="cuda")
+
+
+def _front_poses(params, n, seed):
+    """(n + 16, 3, 4) camera poses: n cars at the spawn table's rows in
+    turn, then 16 cars at random positions over the map and random yaws
+    (edges behind the camera and past max_range), 4 of them with their
+    depth row replaced: 0 (every endpoint on the camera plane), the near
+    plane's depth (every endpoint at z = -1e-7), and two that tilt the map
+    through the near plane, far from the camera."""
+    from tinycarlo_torch import camera as cam
+    from tinycarlo_torch import env as fenv
+
+    md = params.map_data
+    dtype = md.packed_nodes.dtype
+    rows = torch.arange(n, device="cuda") % md.spawns.count
+    state, _, _ = fenv.reset(params, n, spawn_row=rows, render=False)
+    nodes = md.packed_nodes[0]
+    lo, hi = nodes.min(0).values, nodes.max(0).values
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    pos = lo + (hi - lo) * torch.rand((16, 2), generator=g, device="cuda",
+                                      dtype=dtype)
+    yaw = torch.rand(16, generator=g, device="cuda", dtype=dtype) * 6.3
+    rand = torch.matmul(params.camera.E,
+                        cam.car_world_to_body_matrix(pos, yaw))
+    mid = ((lo + hi) / 2).tolist()
+    for i, row in enumerate(([0.0, 0.0, 0.0, 0.0], [0.0, 0.0, 0.0, -1e-7],
+                             [1.0, 0.0, 0.0, -mid[0]],
+                             [0.0, -1.0, 0.0, mid[1]])):
+        rand[i, 2] = torch.tensor(row, dtype=dtype)
+    return torch.cat([fenv._camera_pose(params, state), rand]).contiguous()
+
+
+def _front_args(params, pose):
+    md = params.map_data
+    cam = params.cfg.camera
+    e = md.packed_edges.shape[1]
+    return (md.packed_nodes, md.packed_edges, md.packed_edge_mask,
+            md.packed_edge_layer, pose, params.camera.K, md.n_layers,
+            tuple(cam.resolution), cam.line_thickness, cam.max_range,
+            rk._budget(e, cam.resolution[1], cam.max_visible_segments),
+            md.packed_layer_bounds)
+
+
+def _bits(t):
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+# (config, envs, thickness, resolution): the benchmark's two cells (lane
+# blocks 2 and 5), thickness 1 on both, one lane block at 120x128, B = 1
+FRONT_CASES = [
+    ("simple_layout-128x160", 4096, None, None),
+    ("knuffingen-480x640", 512, None, None),
+    ("simple_layout-128x160", 256, 1, None),
+    ("knuffingen-480x640", 64, 1, None),
+    ("simple_layout-128x160", 256, 2, (120, 128)),
+    ("simple_layout-128x160", 256, 1, (120, 128)),
+    ("knuffingen-480x640", 1, None, None),
+]
+
+
+@pytest.mark.parametrize("name,n,t,res", FRONT_CASES)
+def test_front_kernel_matches_plain(name, n, t, res):
+    """The front kernel's bundle equals the torch composition's, all 8
+    tensors bit for bit, on spawn-table states and poses that clip at the
+    near plane and the range; the masks and rank kernels' frames from
+    both bundles are equal."""
+    _require_cuda()
+    params = _front_params(name, t, res)
+    pose = _front_poses(params, n, seed=n)
+    if n == 1:
+        pose = pose[:1].contiguous()
+    args = _front_args(params, pose)
+    before = rk.front_kernel.launches
+    got = rk.front_kernel(*args)
+    assert rk.front_kernel.launches == before + 1
+    want = rk.front_plain(*args)
+    torch.cuda.synchronize()
+    for name_, g, w_ in zip(("idx", "ax", "ay", "abx", "aby", "inv", "bw",
+                             "counts"), got, want):
+        assert g.dtype == w_.dtype and g.shape == w_.shape, name_
+        assert torch.equal(_bits(g), _bits(w_)), name_
+    assert int(want[-1][0].sum()) > 0
+    md = params.map_data
+    cam = params.cfg.camera
+    res_ = tuple(cam.resolution)
+    for kernel in (rk.masks_kernel, rk.rank_kernel):
+        assert torch.equal(kernel(got, md.n_layers, res_, cam.line_thickness),
+                           kernel(want, md.n_layers, res_,
+                                  cam.line_thickness))
+
+
+def test_front_kernel_float64_and_overflow():
+    """float64 params (the projection in float64, as the composition's)
+    and a budget of 3 segments, which drops copies."""
+    _require_cuda()
+    params = _front_params("simple_layout-128x160", dtype=torch.float64)
+    pose = _front_poses(params, 128, seed=2)
+    args = list(_front_args(params, pose))
+    for k in (args[10], 3 * 2):
+        args[10] = k
+        got = rk.front_kernel(*args)
+        want = rk.front_plain(*args)
+        for g, w_ in zip(got, want):
+            assert torch.equal(_bits(g), _bits(w_))
+    assert int(want[-1][3].sum()) > 0
+    with pytest.raises(ValueError, match="float32"):
+        rk.front_kernel(*args[:4], pose.half(), *args[5:])
+
+
+def test_front_kernel_in_the_render_and_its_graph():
+    """`render_observation_batch` on the card launches the front kernel
+    once a render and counts its envs in `render.front`; a replayed graph
+    of the render equals the eager render, classes and rgb."""
+    _require_cuda()
+    from tinycarlo_torch import env as fenv
+    from tinycarlo_torch.utils import profiling
+
+    params = _front_params("simple_layout-128x160")
+    n = 512
+    rows = torch.arange(n, device="cuda") % params.map_data.spawns.count
+    state, _, _ = fenv.reset(params, n, spawn_row=rows, render=False)
+    for fmt in ("classes", "rgb"):
+        before = rk.front_kernel.launches
+        with profiling.tracing() as tr:
+            eager = fenv.render_observation_batch(params, state, fmt=fmt)
+        assert rk.front_kernel.launches == before + 1
+        assert tr.counters["render.front"] == n
+        graph = torch.cuda.CUDAGraph()
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            fenv.render_observation_batch(params, state, fmt=fmt)
+        torch.cuda.current_stream().wait_stream(stream)
+        with torch.cuda.graph(graph):
+            static = fenv.render_observation_batch(params, state, fmt=fmt)
+        assert rk.front_kernel.launches == before + 3
+        static.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(static, eager)

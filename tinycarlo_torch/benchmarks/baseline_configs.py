@@ -157,10 +157,11 @@ def capture3(params, body, state, warmup: int = WARMUP):
     """`warmup` eager steps, then one step captured over the resulting
     state (`graphs.capture_carried`, the respawn generator registered).
     Returns (graph, [vstate, checksum, i]), the static state each replay
-    advances by one step. Raises unless the render kernel was launched
-    once during the capture."""
+    advances by one step. Raises unless each render kernel
+    (`env.render_kernels`) was launched once during the capture."""
     return graphs.capture_carried(
-        lambda *s: body(*s)[:3], state, carried3, fenv.render_kernel(params),
+        lambda *s: body(*s)[:3], state, carried3,
+        fenv.render_kernels(params),
         generators=(state[0].generator,), warmup=warmup, what="config 3")
 
 

@@ -161,11 +161,11 @@ def capture(params, body, vstate, info, checksum, warmup: int = WARMUP):
     then one step captured over the resulting state (the state's
     generator registered). Returns (graph, (vstate, info, checksum)): the
     static state, which every `graph.replay()` advances by one step.
-    Raises unless the render kernel was launched exactly once during the
-    capture."""
+    Raises unless each render kernel (`env.render_kernels`) was launched
+    exactly once during the capture."""
     graph, state = graphs.capture_carried(
         lambda *s: body(*s)[:3], (vstate, info, checksum), carried,
-        fenv.render_kernel(params), generators=(vstate.generator,),
+        fenv.render_kernels(params), generators=(vstate.generator,),
         warmup=warmup, what="bench")
     return graph, tuple(state)
 

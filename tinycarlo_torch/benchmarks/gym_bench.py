@@ -19,7 +19,8 @@ one) and `cpu` (`device="cpu"`, the plain PyTorch path on this machine's
 CPU). Prints one JSON line per (config, mode):
 steps/s, ms a step, the first step's ms, renders, resets, replays, the
 render kernels' launches as their wrappers count them and the launches
-expected: on the card one a render that ran eagerly (the resets and, in
+expected: on the card, of each kernel a render launches
+(`env.render_kernels`), one a render that ran eagerly (the resets and, in
 graph mode, the first step) and one for each graph's capture, which
 records the launch its replays run (a replay passes no wrapper: a
 profiler trace counts its launches); none on the CPU. Then the card's
@@ -39,7 +40,7 @@ from typing import Dict, List
 
 import numpy as np
 
-from tinycarlo_torch.env import render_kernel
+from tinycarlo_torch.env import render_kernels
 from tinycarlo_torch.gym_env import RENDER_KERNELS, TinyCarloEnv
 from tinycarlo_torch.utils.helper import card_line, resolve_device
 
@@ -127,8 +128,8 @@ def counted_run(env, run_fn, **labels) -> Dict:
     captures = len(env._graphs)
     want = {k.NAME: 0 for k in RENDER_KERNELS}
     if env.device.type == "cuda":
-        want[render_kernel(env.params).NAME] = (
-            result["renders"] - env.replays + captures)
+        want.update((k.NAME, result["renders"] - env.replays + captures)
+                    for k in render_kernels(env.params))
     result.update(**labels, format=env.observation_space_format,
                   replays=env.replays,
                   captures=captures,

@@ -128,7 +128,8 @@ def run(device="cuda", n_envs: int = N_ENVS, steps: int = STEPS,
     body = make_body(params, n_envs)
     if cuda:
         graph, state = graphs.capture_carried(
-            body, state, _carried, kernel, generators=(vstate.generator,),
+            body, state, _carried, fenv.render_kernels(params),
+            generators=(vstate.generator,),
             warmup=3, what="profile_step")
         step = graph.replay
     else:

@@ -201,7 +201,7 @@ def capture_mode(params, mode: str, step, state):
     before = rk.masks_kernel.launches
     graph, state = graphs.capture_carried(
         step, state, carried,
-        rk.masks_kernel if mode in RENDERING else None,
+        (rk.masks_kernel,) if mode in RENDERING else (),
         generators=(state[0].generator,), warmup=2,
         what=f"step_decomp {mode}")
     if mode not in RENDERING and rk.masks_kernel.launches != before:

@@ -59,6 +59,7 @@ from tinycarlo_torch.models.tinycar_net import (
     encoder_flat_features,
     flax_init_,
 )
+from tinycarlo_torch.ops import rasterize_kernels as rk
 from tinycarlo_torch.train import td3
 from tinycarlo_torch.train.evaluate import standard_stack
 from tinycarlo_torch.train.td3_loop import LoopConfig, chunk, init_loop
@@ -144,6 +145,7 @@ def run(device="cuda", n_envs: int = 1024, chunk_steps: int = 200,
                    .sum())
     kernel = fenv.render_kernel(params)
     launches0 = kernel.launches
+    front0 = rk.front_kernel.launches
 
     def one(steps=chunk_steps):
         return chunk(state, params, cfg, loop_cfg, encoder_apply, steps,
@@ -236,6 +238,7 @@ def run(device="cuda", n_envs: int = 1024, chunk_steps: int = 200,
         "render_kernel_records_per_step": k1_records,
         "renders": renders,
         "launches": kernel.launches - launches0,
+        "front_launches": rk.front_kernel.launches - front0,
         **counts,
         "seconds": seconds,
         "peak_memory_gb": (torch.cuda.max_memory_allocated(dev) / 1e9

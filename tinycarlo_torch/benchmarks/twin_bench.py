@@ -18,8 +18,9 @@ step. Modes as tinycarlo_torch.benchmarks.gym_bench's: `graph` (every
 step a replayed CUDA graph), `eager` (on the card, `graphs=False`) and
 `cpu`. One JSON line per (config, mode) -- steps/s, ms a step, the first
 step's ms, renders, resets, replays, the render kernels' launches as
-their wrappers count them and the launches expected (one a render that
-ran eagerly and one a capture; a replay passes no wrapper) -- then the
+their wrappers count them and the launches expected (of each kernel a
+render launches, one a render that ran eagerly and one a capture; a
+replay passes no wrapper) -- then the
 card's name and power limit.
 
 Runs on the card and raises without a GPU; `run(env)` drives any twin

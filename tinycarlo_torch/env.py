@@ -117,15 +117,19 @@ def _project_packed_batch_soa(params: EnvParams, states: EnvState,
     md = params.map_data
     if edges is None:
         edges, edge_mask = md.packed_edges, md.packed_edge_mask
-    body = cam.car_world_to_body_matrix(
-        states.car.position, states.car.rotation
-    )
-    pose = torch.matmul(params.camera.E, body)  # (B, 3, 4), camera.py:61
     u0, v0, u1, v1, draw = cam.project_layers_batch_soa(
-        md.packed_nodes, edges, edge_mask, pose,
+        md.packed_nodes, edges, edge_mask, _camera_pose(params, states),
         params.camera.K, tuple(cfg.camera.resolution), cfg.camera.max_range,
     )  # (B, 1, Ep) each
     return u0[:, 0], v0[:, 0], u1[:, 0], v1[:, 0], draw[:, 0]
+
+
+def _camera_pose(params: EnvParams, states: EnvState) -> torch.Tensor:
+    """(B, 3, 4) camera poses E @ world->car of a batch (camera.py:61)."""
+    body = cam.car_world_to_body_matrix(
+        states.car.position, states.car.rotation
+    )
+    return torch.matmul(params.camera.E, body)
 
 
 def _project_packed_batch(params: EnvParams, states: EnvState):
@@ -159,7 +163,8 @@ def render_observation_batch(
     out_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
     """Observations of a batch of states in format `fmt` (default: the
-    config's): packed projection and compaction, then the masks kernel
+    config's): packed projection and compaction (one front kernel on the
+    card, `rasterize_kernels.front_bundle`), then the masks kernel
     (classes) or the rank kernel and its decode (rank, rgb, rgb_planar).
     With the exact stroke at t >= 2 every format starts from the exact
     kernel's masks, as the JAX package's does (env.py:270-319): classes
@@ -182,12 +187,12 @@ def _render(params: EnvParams, states: EnvState, fmt: str,
             out_dtype: Optional[torch.dtype]) -> torch.Tensor:
     cfg = params.cfg
     md = params.map_data
-    u0, v0, u1, v1, draw = _project_packed_batch_soa(params, states)
-    exact = ras._exact(cfg.camera.line_thickness, cfg.camera.stroke)
-    if fmt == "classes" or exact:
+    res = tuple(cfg.camera.resolution)
+    t = cfg.camera.line_thickness
+    if ras._exact(t, cfg.camera.stroke):
+        u0, v0, u1, v1, draw = _project_packed_batch_soa(params, states)
         masks = rk.rasterize_masks_packed_soa(
-            u0, v0, u1, v1, draw, md.packed_edge_layer, md.n_layers,
-            tuple(cfg.camera.resolution), cfg.camera.line_thickness,
+            u0, v0, u1, v1, draw, md.packed_edge_layer, md.n_layers, res, t,
             max_visible=cfg.camera.max_visible_segments,
             layer_bounds=md.packed_layer_bounds,
             out_dtype=torch.uint8 if out_dtype is None else out_dtype,
@@ -202,14 +207,23 @@ def _render(params: EnvParams, states: EnvState, fmt: str,
         rank = ras.rank_from_masks(masks)
         return rank if fmt == "rank" else ras.rgb_from_rank(
             rank, md.laneline_colors)
-    # rgb fast path (env.py:270-297): the rank kernel's layer map, then
-    # the palette composite reads it instead of per-layer masks
-    rank = rk.rasterize_rank_packed_soa(
-        u0, v0, u1, v1, draw, md.packed_edge_layer, md.n_layers,
-        tuple(cfg.camera.resolution), cfg.camera.line_thickness,
+    # the fast stroke: the front kernel's bundle (projection and
+    # compaction in one launch on the card), then the masks kernel for
+    # classes, or for rank / rgb / rgb_planar (env.py:270-297) the rank
+    # kernel's layer map, which the palette composite reads
+    bundle = rk.front_bundle(
+        md.packed_nodes, md.packed_edges, md.packed_edge_mask,
+        md.packed_edge_layer, _camera_pose(params, states), params.camera.K,
+        md.n_layers, res, t, cfg.camera.max_range,
         max_visible=cfg.camera.max_visible_segments,
-        layer_bounds=md.packed_layer_bounds, stroke=cfg.camera.stroke,
+        layer_bounds=md.packed_layer_bounds,
     )
+    if fmt == "classes":
+        return rk.masks_kernel(
+            bundle, md.n_layers, res, t,
+            out_dtype=torch.uint8 if out_dtype is None else out_dtype,
+        )
+    rank = rk.rank_kernel(bundle, md.n_layers, res, t)
     if fmt == "rank":
         return rank
     if fmt == "rgb_planar":
@@ -228,6 +242,16 @@ def render_kernel(params: EnvParams):
     if params.cfg.sim.observation_space_format == "classes":
         return rk.masks_kernel
     return rk.rank_kernel
+
+
+def render_kernels(params: EnvParams):
+    """The kernel wrappers a render of the config's format launches on the
+    card, once each: the front kernel, then `render_kernel`'s, under the
+    fast stroke; the exact kernel alone under the exact stroke."""
+    kernel = render_kernel(params)
+    if kernel is rk.exact_kernel:
+        return (kernel,)
+    return (rk.front_kernel, kernel)
 
 
 def render_observation(

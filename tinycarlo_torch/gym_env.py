@@ -17,8 +17,8 @@ utils/profiling.py), over static state and action buffers. Per step the host wri
 it in, replays, and copies obs, reward, flags and info out as ONE byte
 buffer into pinned memory (tinycarlo_tpu/gym_env.py:309-326 is the JAX
 shim's one dispatch and one transfer). The capture raises unless it
-recorded exactly one launch of the render kernel (none without a render);
-its wrapper counts that recording, and a replay, which runs the recorded
+recorded exactly one launch of each render kernel (`env.render_kernels`;
+none without a render); its wrapper counts that recording, and a replay, which runs the recorded
 launch without the wrapper, counts nothing (`replays` counts the
 replays). Anything that changes the state outside a step (`reset`,
 `camera.update_params()`) writes into the captured tensors in place.
@@ -55,8 +55,9 @@ from tinycarlo_torch.utils import profiling
 from tinycarlo_torch.utils.gym_compat import Env, spaces
 from tinycarlo_torch.utils.helper import getenv, numpy_dtype, resolve_device
 
-# the render kernels a step can launch
-RENDER_KERNELS = (rk.masks_kernel, rk.rank_kernel, rk.exact_kernel)
+# the render kernels a step can launch (`env.render_kernels`)
+RENDER_KERNELS = (rk.front_kernel, rk.masks_kernel, rk.rank_kernel,
+                  rk.exact_kernel)
 
 
 class _CarView:
@@ -337,9 +338,9 @@ class TinyCarloEnv(Env):
         """The first step of a (render, wrapped, tracing) mode: an eager
         step on a side stream (launchers' one-time setup, lazy
         initialisation), then the capture of the step body, which runs
-        nothing and must record one launch of the render kernel (none
-        without a render). Returns the eager step's packed outputs and
-        layout."""
+        nothing and must record one launch of each render kernel
+        (`env.render_kernels`; none without a render). Returns the eager
+        step's packed outputs and layout."""
         want_obs, wrapped, _ = key
         stream = torch.cuda.Stream(self.device)
         stream.wait_stream(torch.cuda.current_stream(self.device))
@@ -354,7 +355,7 @@ class TinyCarloEnv(Env):
                     for k in RENDER_KERNELS}
         want = dict.fromkeys(recorded, 0)
         if want_obs:
-            want[fenv.render_kernel(self.params).NAME] = 1
+            want.update((k.NAME, 1) for k in fenv.render_kernels(self.params))
         if recorded != want:
             raise RuntimeError(f"the captured step recorded the launches "
                                f"{recorded}, not {want}")

@@ -2,10 +2,14 @@
 render path.
 
 Counterpart of the production paths of tinycarlo_tpu/ops/rasterize_pallas.py.
-Projection output (per-env packed edge coordinates) is compacted by torch
-ops into the same bundles as the JAX package: per copy (one per segment
-and touched 128-lane block) a payload and a packed band word, plus a
-(B, k) slot->copy index from `torch.topk` over a short-first key.
+Projection output (per-env packed edge coordinates) is compacted into the
+same bundles as the JAX package: per copy (one per segment and touched
+128-lane block) a payload and a packed band word, plus a (B, k) slot->copy
+index in the order of a short-first key. On the card the fast stroke's
+projection and compaction are one kernel, the front kernel
+(ops/csrc/front.cu, `front_bundle`), which routes the slots by a stable
+partition; its plain version `front_plain` composes torch ops, the
+compaction's index from `torch.topk` over the key.
 
 - `compact_env_idx_soa(pre=False)`: the fast stroke's payload (integer
   endpoint, direction, the stamp's reciprocal). Two kernels stamp it:
@@ -43,6 +47,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from tinycarlo_torch import camera as cam
 from tinycarlo_torch.ops._build import libraries
 from tinycarlo_torch.ops.cv2_stroke import (
     cap_half_widths,
@@ -1463,6 +1468,110 @@ class ExactKernel(_Kernel):
         )
 
 
+def front_plain(nodes, edges, edge_mask, edge_layer, pose, K, n_layers: int,
+                resolution: Tuple[int, int], thickness: int,
+                max_range: Optional[float], k: int,
+                layer_bounds: Optional[Tuple[int, ...]] = None):
+    """The fast stroke's bundle of a batch of camera poses, composed of
+    torch ops: `camera.project_layers_batch_soa` of the packed edge axis
+    (nodes (1, N, 2), edges (1, E, 2), edge_mask (1, E)), then
+    `compact_env_idx_soa` at budget `k`. The front kernel's plain version
+    and its yardstick."""
+    h, w = resolution
+    u0, v0, u1, v1, draw = cam.project_layers_batch_soa(
+        nodes, edges, edge_mask, pose, K, tuple(resolution), max_range,
+    )
+    return compact_env_idx_soa(
+        u0[:, 0], v0[:, 0], u1[:, 0], v1[:, 0], draw[:, 0], k, h, thickness,
+        edge_layer=edge_layer, n_layers=n_layers, w=w,
+        layer_bounds=layer_bounds,
+    )
+
+
+class FrontKernel(_Kernel):
+    """The render front end's wrapper: `ops/csrc/front.cu` on CUDA tensors,
+    `front_plain` (the projection and compaction as torch ops) on CPU
+    tensors. Returns the `compact_env_idx_soa` bundle (idx, ax, ay, abx,
+    aby, inv, bw, counts) of the poses' envs, equal element for element to
+    `front_plain`'s.
+
+    The fast stroke only (the masks and rank kernels' bundle); the kernel
+    takes float32 or float64 nodes, poses and intrinsics, as the
+    projection does. These stay on the torch composition: CPU tensors (the
+    plain version, which the CPU tests hold against the JAX package);
+    `stroke: exact` at t >= 2 (`compact_env_exact_soa` and the exact
+    kernel); `env.check_segment_overflow` and the scripts that time the
+    compaction alone (`rasterize_bench`, `step_decomp`), which call
+    `compact_env_idx_soa` on projected edges. The segment-parallel
+    renderer (`parallel/sp.py`) gives it a rank's contiguous shard of the
+    packed axis."""
+
+    NAME = "front"
+    SYMBOL = "tc_front_launch"
+    # tc_front_launch's C signature: 14 pointers (nodes, edges, edge_mask,
+    # edge_layer, pose, K, the bundle's 8), 15 ints (f64, B, E, L, h, w,
+    # nxb, k, kk, n_bands, hp, b0max, tall_nb, bres, has_range),
+    # max_range, rf and the stream
+    ARGTYPES = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 15
+                + [ctypes.c_double, ctypes.c_float, ctypes.c_void_p])
+    # the kernel keeps a byte per copy in shared memory
+    MAX_COPIES = 200_000
+
+    def __call__(self, nodes, edges, edge_mask, edge_layer, pose, K,
+                 n_layers: int, resolution: Tuple[int, int], thickness: int,
+                 max_range: Optional[float], k: int,
+                 layer_bounds: Optional[Tuple[int, ...]] = None):
+        if pose.device.type == "cpu":
+            return front_plain(nodes, edges, edge_mask, edge_layer, pose, K,
+                               n_layers, resolution, thickness, max_range, k,
+                               layer_bounds)
+        h, w = resolution
+        dev = pose.device
+        bsz = pose.shape[0]
+        e = edges.shape[-2]
+        nxb = _n_xblocks(w)
+        le = e * nxb
+        kk = min(k, le)
+        dtype = pose.dtype
+        if dtype not in (torch.float32, torch.float64):
+            raise ValueError(f"front kernel: pose dtype {dtype} not in "
+                             "(float32, float64)")
+        self._check_tensors({
+            "nodes": (nodes, dtype, (1, nodes.shape[1], 2)),
+            "edges": (edges, torch.int32, (1, e, 2)),
+            "edge_mask": (edge_mask, torch.bool, (1, e)),
+            "edge_layer": (edge_layer, torch.int32, (e,)),
+            "pose": (pose, dtype, (bsz, 3, 4)),
+            "K": (K, dtype, (3, 3)),
+        }, dev)
+        if kk < 1 or le > self.MAX_COPIES:
+            raise ValueError(f"front kernel: budget {k} of {le} copies "
+                             f"outside 1..{self.MAX_COPIES}")
+        n_bands, hp, win = _window_rows(h)
+        assert n_bands < _NB_PACK, "frame too tall for the packed band word"
+        assert n_layers * nxb * n_bands < (1 << 24) // _NB_PACK, (
+            "stacked frames too tall for band word"
+        )
+
+        def new(dt, shape=(bsz, le)):
+            return torch.empty(shape, dtype=dt, device=dev)
+
+        bundle = (new(torch.int32, (bsz, kk + 7)),
+                  *(new(torch.float32) for _ in range(5)),
+                  new(torch.int32), new(torch.int32, (4 + n_layers, bsz)))
+        rf = float(_stroke_radius_sq(thickness)) ** 0.5
+        self._run(
+            bundle[1], nodes.data_ptr(), edges.data_ptr(),
+            edge_mask.data_ptr(), edge_layer.data_ptr(), pose.data_ptr(),
+            K.data_ptr(), *(t.data_ptr() for t in bundle),
+            int(dtype == torch.float64), bsz, e, n_layers, h, w, nxb, k, kk,
+            n_bands, hp, (hp - win) // _GRAN, win // _GRAN,
+            int(thickness <= 1), int(max_range is not None),
+            0.0 if max_range is None else float(max_range), rf,
+        )
+        return bundle
+
+
 class _SoaKernel(_Kernel):
     """A kernel over one of the older SoA bundles (`compact_soa`,
     `compact_env_soa`, `compact_env_seg`): (B, L, H, W) uint8 0/255 masks
@@ -1578,39 +1687,77 @@ class EnvSegKernel(_SoaKernel):
 masks_kernel = MasksKernel()
 rank_kernel = RankKernel()
 exact_kernel = ExactKernel()
+front_kernel = FrontKernel()
 frame_soa_kernel = FrameSoaKernel()
 env_soa_kernel = EnvSoaKernel()
 env_seg_kernel = EnvSegKernel()
 
 
+def _budget(e: int, w: int, max_visible: Optional[int]) -> int:
+    """The production slot budget of an E-edge packed axis: max_visible *
+    ceil(w/128) copies, all copies when None (rasterize_pallas.py:2423)."""
+    nxb = _n_xblocks(w)
+    return e * nxb if max_visible is None else min(max_visible * nxb, e * nxb)
+
+
+def _count_copies(n_copies: int, counts: torch.Tensor) -> None:
+    """The compaction's counters: "render.copies" (the copies it routes)
+    and "render.live_copies" / "render.dropped_copies" (rows 0 and 3 of
+    the bundle's counts: copies given a slot, eligible copies left without
+    one) summed over the batch (utils/profiling.py)."""
+    if profiling.enabled():
+        profiling.count("render.copies", n_copies)
+        profiling.device_count("render.live_copies", counts[0])
+        profiling.device_count("render.dropped_copies", counts[3])
+
+
 def _packed_bundle(compact, u0, v0, u1, v1, draw, edge_layer, n_layers,
                    resolution, thickness, max_visible, layer_bounds):
     """The production compaction `compact` of a packed edge axis with any
-    leading shape: budget max_visible * ceil(w/128) copies (all copies when
-    None; rasterize_pallas.py:2423). Returns (leading shape, bundle).
+    leading shape, at `_budget`. Returns (leading shape, bundle).
 
-    Traced as the device span "render.compact", with the counters
-    "render.copies" (the copies it sorts) and "render.live_copies" /
-    "render.dropped_copies" (rows 0 and 3 of the bundle's counts: copies
-    given a slot, eligible copies left without one) summed over the batch
-    (utils/profiling.py)."""
+    Traced as the device span "render.compact", with `_count_copies`'
+    counters."""
     lead = draw.shape[:-1]
     e = draw.shape[-1]
     h, w = resolution
-    nxb = _n_xblocks(w)
-    k = e * nxb if max_visible is None else min(max_visible * nxb, e * nxb)
+    k = _budget(e, w, max_visible)
     u0, v0, u1, v1, draw = (x.reshape(-1, e) for x in (u0, v0, u1, v1, draw))
     with profiling.device_span("render.compact", draw.device):
         bundle = compact(
             u0, v0, u1, v1, draw, k, h, thickness, edge_layer=edge_layer,
             n_layers=n_layers, w=w, layer_bounds=layer_bounds,
         )
-    if profiling.enabled():
-        counts = bundle[-1]
-        profiling.count("render.copies", draw.shape[0] * e * nxb)
-        profiling.device_count("render.live_copies", counts[0])
-        profiling.device_count("render.dropped_copies", counts[3])
+    _count_copies(draw.shape[0] * e * _n_xblocks(w), bundle[-1])
     return lead, bundle
+
+
+def front_bundle(nodes, edges, edge_mask, edge_layer, pose, K,
+                 n_layers: int, resolution: Tuple[int, int], thickness: int,
+                 max_range: Optional[float],
+                 max_visible: Optional[int] = None,
+                 layer_bounds: Optional[Tuple[int, ...]] = None):
+    """The fast stroke's bundle of the packed edge axis for (B, 3, 4)
+    camera poses at `_budget`: `front_kernel`, one launch on CUDA, its
+    plain version (projection, then `compact_env_idx_soa`) on the CPU.
+
+    Traced as the device span "render.compact", which holds the projection
+    as well as the compaction, with `_count_copies`' counters and the host
+    counter "render.front": the envs whose bundle the front kernel wrote
+    (none on the CPU)."""
+    e = edges.shape[-2]
+    w = resolution[1]
+    with profiling.device_span("render.compact", pose.device):
+        bundle = front_kernel(
+            nodes, edges, edge_mask, edge_layer, pose, K, n_layers,
+            tuple(resolution), thickness, max_range,
+            _budget(e, w, max_visible), layer_bounds,
+        )
+    bsz = pose.shape[0]
+    _count_copies(bsz * e * _n_xblocks(w), bundle[-1])
+    if pose.device.type == "cuda":
+        profiling.count("render.front", bsz)
+    return bundle
 
 
 def rasterize_masks_packed_soa(

@@ -142,6 +142,9 @@ def render_observation_batch_sp(
     over the model axis (JAX sp.py:110-213): each rank projects its edge
     shard (node table and camera whole), compacts it and launches a
     kernel; a MAX all-reduce over the model group composes the frame.
+    Under the fast stroke the projection and compaction are the front
+    kernel's one launch on the card (`rasterize_kernels.front_bundle`),
+    as in the unsharded render.
 
     fmt="classes": (B, L, H, W) masks, 0/255 uint8 or 0/1 in a float
     `out_dtype` (the TD3 chunk's encoder feed, `td3_loop.chunk(
@@ -166,21 +169,25 @@ def render_observation_batch_sp(
     edges = _model_shard(md.packed_edges, 1, mesh)
     emask = _model_shard(md.packed_edge_mask, 1, mesh, value=False)
     elayer = _model_shard(md.packed_edge_layer, 0, mesh)
-    u0, v0, u1, v1, draw = fenv._project_packed_batch_soa(
-        params, states, edges=edges, edge_mask=emask)
-    exact = ras._exact(cam_cfg.line_thickness, cam_cfg.stroke)
-    if fmt == "rank" and not exact:
-        part = rk.rasterize_rank_packed_soa(
-            u0, v0, u1, v1, draw, elayer, md.n_layers, res,
-            cam_cfg.line_thickness,
+    t = cam_cfg.line_thickness
+    if ras._exact(t, cam_cfg.stroke):
+        u0, v0, u1, v1, draw = fenv._project_packed_batch_soa(
+            params, states, edges=edges, edge_mask=emask)
+        part = rk.rasterize_masks_packed_soa(
+            u0, v0, u1, v1, draw, elayer, md.n_layers, res, t,
+            max_visible=cam_cfg.max_visible_segments, stroke=cam_cfg.stroke,
+        )
+    else:
+        bundle = rk.front_bundle(
+            md.packed_nodes, edges, emask, elayer,
+            fenv._camera_pose(params, states), params.camera.K, md.n_layers,
+            res, t, cam_cfg.max_range,
             max_visible=cam_cfg.max_visible_segments,
         )
-        return _max_over_model(part, mesh)
-    part = rk.rasterize_masks_packed_soa(
-        u0, v0, u1, v1, draw, elayer, md.n_layers, res,
-        cam_cfg.line_thickness, max_visible=cam_cfg.max_visible_segments,
-        stroke=cam_cfg.stroke,
-    )
+        if fmt == "rank":
+            return _max_over_model(
+                rk.rank_kernel(bundle, md.n_layers, res, t), mesh)
+        part = rk.masks_kernel(bundle, md.n_layers, res, t)
     masks = _max_over_model(part, mesh)
     if fmt == "rank":
         return ras.rank_from_masks(masks)

@@ -390,7 +390,7 @@ class Collector:
         self.graphs: Dict[Any, torch.cuda.CUDAGraph] = {}
         self.pool = None
         self.stream = None
-        self.kernel = fenv.render_kernel(params)
+        self.kernels = fenv.render_kernels(params)
         self.stats = {"renders": 0, "captures": 0, "replays": 0}
 
     def _begin(self, maneuver, generator, draws) -> None:
@@ -513,7 +513,7 @@ class Collector:
                     self.stream = torch.cuda.Stream(self.params.device)
                 graphs.warm_up(self._unit, stream=self.stream)
                 self.stats["renders"] += 1
-                g = graphs.capture(self._unit, self.kernel,
+                g = graphs.capture(self._unit, self.kernels,
                                    generators=(generator,), pool=self.pool,
                                    stream=self.stream)
                 self.pool = g.pool()

@@ -423,7 +423,7 @@ def chunk(
     kinds, filled, steps = step_kinds(state, cfg, loop_cfg, n_steps,
                                       n_global)
     use_graph = graph and dev.type == "cuda"
-    kernel = fenv.render_kernel(params)
+    kernels = fenv.render_kernels(params)
     for kind in kinds:
         def run(kind=kind):
             _step(state, params, cfg, loop_cfg, encoder_apply, stack, kind,
@@ -448,7 +448,7 @@ def chunk(
         graphs.warm_up(run, stream=rt.stream)
         with profiling.held_counts() as held:
             g = graphs.capture(
-                run, kernel,
+                run, kernels,
                 generators=(state.generator, state.vstate.generator),
                 pool=rt.pool, stream=rt.stream)
         rt.pool = g.pool()

@@ -9,14 +9,16 @@ its new values back into them (`capture`; `capture_carried` does both for
 a step that maps a state to its next), so that each `replay()` advances
 the state by one step. The generators the step draws from are
 registered with the graph, so each replay draws what an eager step would.
-A capture raises unless the render kernel was recorded exactly once: a
-graph that rendered nothing, or twice, is not the step it stands for.
+A capture raises unless each render kernel (`env.render_kernels`: the
+front kernel and the masks or rank kernel, or the exact kernel) was
+recorded exactly once: a graph that rendered nothing, or twice, is not
+the step it stands for.
 Kernel launch counters count at capture only; a replay passes no Python.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Iterable, List
+from typing import Callable, Iterable, List, Sequence
 
 import torch
 from torch import nn
@@ -75,32 +77,35 @@ def warm_up(fn: Callable, times: int = 1, stream=None):
     return out
 
 
-def capture(step: Callable[[], None], kernel=None,
+def capture(step: Callable[[], None], kernels: Sequence = (),
             generators: Iterable[torch.Generator] = (), pool=None,
             stream=None) -> torch.cuda.CUDAGraph:
     """One call of `step()` (which writes its results into static tensors)
     captured as a CUDA graph on `stream` (default: torch's capture
     stream), with `generators` registered (each once) and the memory
-    `pool` of another graph shared when given. Raises unless `kernel` (a
-    wrapper with a `launches` count; None skips the check) was launched
-    exactly once during the capture."""
+    `pool` of another graph shared when given. Raises unless each of
+    `kernels` (wrappers with a `launches` count, as
+    `env.render_kernels` gives them) was launched exactly once during the
+    capture."""
     graph = torch.cuda.CUDAGraph()
     seen = []
     for g in generators:
         if g is not None and all(g is not s for s in seen):
             graph.register_generator_state(g)
             seen.append(g)
-    before = None if kernel is None else kernel.launches
+    before = [k.launches for k in kernels]
     with torch.cuda.graph(graph, pool=pool, stream=stream):
         step()
-    if kernel is not None and kernel.launches - before != 1:
-        raise RuntimeError(
-            f"the captured step launched the {kernel.NAME} kernel "
-            f"{kernel.launches - before} times, not once")
+    for k, n in zip(kernels, before):
+        if k.launches - n != 1:
+            raise RuntimeError(
+                f"the captured step launched the {k.NAME} kernel "
+                f"{k.launches - n} times, not once")
     return graph
 
 
-def capture_carried(body: Callable, state, carried: Callable, kernel=None,
+def capture_carried(body: Callable, state, carried: Callable,
+                    kernels: Sequence = (),
                     generators: Iterable[torch.Generator] = (),
                     warmup: int = 1, what: str = "step"):
     """A step `body(*state) -> new state` captured over the state's own
@@ -108,7 +113,7 @@ def capture_carried(body: Callable, state, carried: Callable, kernel=None,
     captured over the resulting state, writing its new values back into
     the tensors `carried(*state)` lists (which must not share storage).
     Returns (graph, state): the static state, which every `replay()`
-    advances by one step. `kernel` and `generators` as in `capture`."""
+    advances by one step. `kernels` and `generators` as in `capture`."""
     state = list(state)
 
     def eager():
@@ -123,7 +128,7 @@ def capture_carried(body: Callable, state, carried: Callable, kernel=None,
             if dst is not src:
                 dst.copy_(src)
 
-    return capture(step, kernel, generators=generators), state
+    return capture(step, kernels, generators=generators), state
 
 
 def deterministic(on: bool = True) -> None:

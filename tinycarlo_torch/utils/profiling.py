@@ -57,18 +57,21 @@ Names in the port (spans are host spans unless marked device):
   | `rollout.replay` | around each replay of its graph |
   | `rollout.step` (device) | one whole step, eager or in the captured graph |
   | `vector.step`, `vector.render` (device) | `vector.step`; its render |
-  | `render`, `render.compact` (device) | `env.render_observation_batch`; its compaction |
+  | `render`, `render.compact` (device) | `env.render_observation_batch`; its projection and compaction (the front kernel on the card; under the exact stroke the compaction alone) |
   | `gym.step` (call), `gym.stage_in`, `gym.replay`, `gym.wait`, `gym.unpack` | `TinyCarloEnv.step`: action staging and copy in; the graph's replay; the copy out and its synchronize; unpacking and `_convert_info` |
   | `td3.policy` ... `td3.update` (device) | the stages of `train.td3_loop._step` (`td3_loop.STAGES`) |
 
 Counters: `render.copies` (host; B x LE, the copies each render's
-compaction sorts, counted per eager render and per replay),
+compaction routes, counted per eager render and per replay),
 `render.live_copies` and `render.dropped_copies` (device; rows 0 and 3 of
 the compaction's `counts`, summed over the batch each render). Live over
 copies is the compaction's useful share. `render.dropped_copies` is the
 in-graph form of `env.check_segment_overflow`: eligible copies that found
 no slot under `camera.max_visible_segments`; nonzero means lost pixels,
-and an operator raises the budget until it reads 0. `trace.marks_lost`:
+and an operator raises the budget until it reads 0. `render.front`
+(host): the envs whose bundle the front kernel (ops/csrc/front.cu) wrote,
+counted per render like `render.copies`; beside the envs rendered, the
+share of renders the kernel takes. `trace.marks_lost`:
 device-span marks the ring overwrote.
 """
 from __future__ import annotations

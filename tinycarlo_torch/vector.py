@@ -189,7 +189,7 @@ def rollout(
     On a CUDA state with `graph` (the default) and more than
     ROLLOUT_WARMUP steps, those first steps run eagerly on a side stream,
     then one step is captured as a CUDA graph over the state's tensors
-    (the render kernel recorded once when rendering; the generators
+    (each render kernel recorded once when rendering; the generators
     registered) and replayed for the rest, its outputs written into (T,
     ...) buffers at a device-side step index. The returned state's
     tensors are the graph's static ones. `stats`, if given, gains the
@@ -261,8 +261,8 @@ def _rollout(params, state, policy_fn, n_steps, stack, max_episode_steps,
 
     # the host counts of the captured step count at each replay
     with profiling.span("rollout.capture"), profiling.held_counts() as held:
-        g = graphs.capture(captured, fenv.render_kernel(params) if render
-                           else None, generators=(state.generator, generator))
+        g = graphs.capture(captured, fenv.render_kernels(params) if render
+                           else (), generators=(state.generator, generator))
     for _ in range(n_rest):
         with profiling.span("rollout.replay"):
             g.replay()
