@@ -852,6 +852,37 @@ def test_td3_chunk_graphs_match_eager():
     assert bool((out_a["actor_loss"][4::2] != 0).all())
 
 
+def test_td3_shorter_chunk_replays_the_captured_graphs():
+    """A 1-step chunk after a 20-step one replays the captured graph (no
+    capture, no eager step) and gives the row a 20-step chunk from the
+    same state gives first, bit for bit, every update's losses included;
+    a longer chunk captures anew."""
+    _require_cuda()
+    from tinycarlo_torch.train.td3_loop import chunk
+    from tinycarlo_torch.utils import graphs
+
+    graphs.deterministic(True)
+    try:
+        a, args, stack = _td3_loop(64, seed=5)
+        b, _, _ = _td3_loop(64, seed=5)
+        for s in (a, b):
+            chunk(s, *args, 20, stack=stack)
+        rt = a.runtime
+        graphs_before = dict(rt.graphs)
+        eager, replays = rt.eager_steps, rt.replays
+        a, one = chunk(a, *args, 1, stack=stack)
+        b, whole = chunk(b, *args, 20, stack=stack)
+        assert a.runtime is rt and rt.graphs == graphs_before
+        assert rt.eager_steps == eager and rt.replays == replays + 1
+        assert all(torch.equal(one[k][0], whole[k][0]) for k in one)
+        assert one["update_losses"].shape == (1, 1, 3)
+        a, _ = chunk(a, *args, 21, stack=stack)
+        # one eager step and capture a kind: critic-only, critic + actor
+        assert a.runtime is not rt and a.runtime.eager_steps == 2
+    finally:
+        graphs.deterministic(False)
+
+
 def test_td3_checkpoint_restores_into_a_captured_loop(tmp_path):
     """A checkpoint restored into the loop whose graphs are captured
     (copy_ into their static tensors) replays the same next chunk."""

@@ -664,7 +664,8 @@ def test_dp_sp_chunk_bit_equal(battery, single_chunk):
 # the unsharded one at rtol 1e-6 on the rollout, 1e-4 on the losses).
 TP_TOL = {"buf.a": dict(rtol=0, atol=1e-6),
           **{"out." + k: dict(rtol=1e-6, atol=0) for k in
-             ("critic1_loss", "critic2_loss", "actor_loss")}}
+             ("critic1_loss", "critic2_loss", "actor_loss",
+              "update_losses")}}
 
 
 def test_dp_tp_sp_chunk(battery, single_chunk):

@@ -150,7 +150,11 @@ def _chunk_pair(n, **loop_kw):
 
 
 def _assert_chunks_match(jfinal, jout, pfinal, pout):
-    assert set(pout) == set(jout)
+    # the port adds every update's losses; the last update's are the keys
+    # both packages give
+    assert set(pout) == set(jout) | {"update_losses"}
+    for j, k in enumerate(ploop.LOSSES):
+        assert torch.equal(pout["update_losses"][:, -1, j], pout[k]), k
     for k in ("reward", "cte", "laneline_distances"):
         np.testing.assert_allclose(pout[k].numpy(), np.asarray(jout[k]),
                                    rtol=0, atol=1e-6, err_msg=k)
@@ -235,6 +239,70 @@ def test_fused_chunk(params):
     # actor updates on every second update (policy_delay 2), 0 elsewhere
     assert bool((out["actor_loss"][::2] != 0).all())
     assert bool((out["actor_loss"][1::2] == 0).all())
+
+
+def test_update_losses_hold_every_update(params):
+    """`update_losses` (T, U, 3): the last update's column equals the old
+    loss keys bit for bit; a critic-only update's actor entry is 0, an
+    actor update's is not (policy_delay 2: actor at updates 2 and 4); a
+    step before the buffer holds a batch is all 0."""
+    cfg = ptd3.TD3Config(seq_len=3, batch_size=8)
+    loop_cfg = ploop.LoopConfig(replay_size=64, max_episode_steps=50,
+                                updates_per_step=4)
+    with torch_threads(1):
+        state, out = _run(params, cfg, loop_cfg, 5)
+    ul = out["update_losses"]
+    assert ul.shape == (5, 4, 3) and ul.dtype == torch.float32
+    for j, k in enumerate(ploop.LOSSES):
+        assert torch.equal(ul[:, -1, j], out[k]), k
+    assert not ul[0].any()  # 4 < 8 envs inserted: no update yet
+    assert bool((ul[1:, :, :2] != 0).all())
+    assert not ul[1:, 0::2, 2].any()  # critic-only updates 1 and 3
+    assert bool((ul[1:, 1::2, 2] != 0).all())
+    assert state.steps_host == int(state.td3_state.steps) == 16
+
+
+def test_shorter_chunk_replays_the_runtime(params, tmp_path):
+    """A 1-step chunk after a 100-step one keeps the chunk's runtime (on
+    the card: its captured graphs and buffers) and returns the row that a
+    100-step chunk from the same state (a checkpoint restored) gives
+    first."""
+    from tinycarlo_torch.utils import checkpoint
+
+    cfg = ptd3.TD3Config(seq_len=3, batch_size=8)
+    loop_cfg = ploop.LoopConfig(replay_size=64, max_episode_steps=20,
+                                total_episodes=3)
+    state = ploop.init_loop(params, cfg, loop_cfg, B, seed=5)
+    path = str(tmp_path / "loop.pt")
+    with torch_threads(1):
+        state, _ = ploop.chunk(state, params, cfg, loop_cfg, p_encoder, 100)
+        checkpoint.save(path, state)
+        rt = state.runtime
+        state, one = ploop.chunk(state, params, cfg, loop_cfg, p_encoder, 1)
+        assert state.runtime is rt and rt.steps == 100
+        checkpoint.restore(path, state)
+        state, whole = ploop.chunk(state, params, cfg, loop_cfg, p_encoder,
+                                   100)
+    assert set(one) == set(whole)
+    for k in one:
+        assert one[k].shape == (1,) + whole[k].shape[1:], k
+        assert torch.equal(one[k][0], whole[k][0]), k
+    assert bool(whole["done"].any())  # episodes end and respawn in it
+
+
+def test_longer_chunk_captures_anew(params):
+    """A chunk longer than the runtime's buffers makes a new runtime (on
+    the card: captures its graphs again) of its length."""
+    cfg = ptd3.TD3Config(seq_len=3, batch_size=8)
+    loop_cfg = ploop.LoopConfig(replay_size=64, max_episode_steps=50)
+    with torch_threads(1):
+        state, _ = _run(params, cfg, loop_cfg, 2)
+        rt = state.runtime
+        state, out = ploop.chunk(state, params, cfg, loop_cfg, p_encoder, 3)
+        assert state.runtime is not rt and state.runtime.steps == 3
+        assert out["reward"].shape == (3, B)
+        state, out = ploop.chunk(state, params, cfg, loop_cfg, p_encoder, 2)
+    assert state.runtime.steps == 3 and out["reward"].shape == (2, B)
 
 
 def test_sigma_per_episode_host_target(params):

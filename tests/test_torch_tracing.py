@@ -12,7 +12,7 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
-from tests.test_torch_common import bench_config
+from tests.test_torch_common import bench_config, torch_threads
 from tinycarlo_torch import env as fenv
 from tinycarlo_torch import vector
 from tinycarlo_torch.gym_env import TinyCarloEnv
@@ -221,6 +221,30 @@ def test_held_counts_count_at_each_replay():
         for _ in range(3):
             profiling.add_counts(held)
     assert tr.counters["n"] == 15
+
+
+def test_td3_chunk_counts_updates_and_rows():
+    """A traced chunk of 4-update steps (policy_delay 2): U x steps
+    updates, U / 2 x steps of them actor updates, B x steps replay rows."""
+    from tinycarlo_torch.train import td3
+    from tinycarlo_torch.train import td3_loop
+
+    params = _params()
+    cfg = td3.TD3Config(seq_len=3, batch_size=N_ENVS)
+    loop_cfg = td3_loop.LoopConfig(replay_size=64, max_episode_steps=50,
+                                   updates_per_step=4)
+    state = td3_loop.init_loop(params, cfg, loop_cfg, N_ENVS, seed=2)
+
+    def encoder(obs):
+        return obs.float().reshape(obs.shape[0], -1)[:, :256]
+
+    steps = 3
+    with torch_threads(1), profiling.tracing() as tr:
+        _, out = td3_loop.chunk(state, params, cfg, loop_cfg, encoder, steps)
+    assert bool((out["update_losses"][:, :, 0] != 0).all())
+    assert tr.counters["td3.updates"] == 4 * steps
+    assert tr.counters["td3.actor_updates"] == 2 * steps
+    assert tr.counters["td3.rows_inserted"] == N_ENVS * steps
 
 
 def test_small_ring_counts_lost_marks(monkeypatch):

@@ -114,7 +114,8 @@ def run(device="cuda", n_envs: int = 1024, chunk_steps: int = 200,
         cfg: Optional[td3.TD3Config] = None) -> Dict:
     """One configuration, the protocol of the module docstring. A
     `profile_steps` other than the chunk's traces chunks of that length
-    instead (their graphs captured in an untraced chunk first). Returns
+    instead (after an untraced one: a shorter chunk replays the timed
+    chunk's graphs, a longer one captures its own there). Returns
     the JSON line's dict, and under "state" and "params" the loop's state
     and params (not printed)."""
     clock = time.perf_counter()
@@ -183,8 +184,9 @@ def run(device="cuda", n_envs: int = 1024, chunk_steps: int = 200,
         from torch.profiler import ProfilerActivity, profile as prof_ctx
 
         steps = profile_steps or chunk_steps
+        timed_rt = state.runtime
         if steps != chunk_steps:
-            one(steps)  # captures the shorter chunk's graphs
+            one(steps)  # a longer chunk captures graphs of its own
             renders += steps
         with prof_ctx(activities=[ProfilerActivity.CPU,
                                   ProfilerActivity.CUDA]) as prof:
@@ -193,10 +195,12 @@ def run(device="cuda", n_envs: int = 1024, chunk_steps: int = 200,
             _sync(dev)
             wall_ms = (time.perf_counter() - start) * 1e3 / steps
         renders += steps
-        # a chunk of another length ran on graphs of its own
+        # a longer chunk ran on graphs of its own; a shorter one replayed
+        # the timed chunk's
         counts = ({k: counts[k] + v
                    for k, v in _counts(state.runtime).items()}
-                  if steps != chunk_steps else _counts(state.runtime))
+                  if state.runtime is not timed_rt
+                  else _counts(state.runtime))
         # profile_step imports this module: import its helper here
         from tinycarlo_torch.benchmarks.profile_step import kernel_events
 

@@ -77,6 +77,8 @@ SIGMA0 = 0.4
 # env step, in vector.step's "vector.render" span
 STAGES = ("td3.policy", "td3.env_step", "td3.render", "td3.encoder",
           "td3.replay_add", "td3.update")
+# the losses of one update, in the order of `update_losses`' last axis
+LOSSES = ("critic1_loss", "critic2_loss", "actor_loss")
 
 
 @dataclass(frozen=True)
@@ -205,11 +207,13 @@ def step_kinds(state: LoopState, cfg: td3.TD3Config, loop_cfg: LoopConfig,
 class _Runtime:
     """A chunk's output buffers, its step index, the injected draws'
     buffers, and the captured graph of each kind of step with its
-    replays."""
+    replays. The buffers hold `steps` rows, the longest chunk since the
+    capture; a shorter chunk fills their first rows."""
 
     def __init__(self, key, n_steps: int, outs: Dict[str, torch.Tensor],
                  dev: torch.device):
         self.key = key
+        self.steps = n_steps
         self.out = {k: torch.zeros((n_steps, *v.shape), dtype=v.dtype,
                                    device=dev) for k, v in outs.items()}
         self.t = torch.zeros(1, dtype=torch.long, device=dev)
@@ -294,10 +298,9 @@ def _step(state: LoopState, params, cfg: td3.TD3Config,
     with profiling.device_span("td3.replay_add", dev):
         rb.add_batch(s.buf, rows, s.generator,
                      None if draw is None else draw["evict"])
+    profiling.count("td3.rows_inserted", rows["m"].shape[0])
 
-    zero = torch.zeros((), dtype=torch.float32, device=dev)
-    losses = {"critic1_loss": zero, "critic2_loss": zero,
-              "actor_loss": zero}
+    per_update = []
     for i, do_actor in enumerate(kind or ()):
         with profiling.device_span("td3.update", dev):
             batch = rb.sample(s.buf, cfg.batch_size, s.generator,
@@ -305,6 +308,15 @@ def _step(state: LoopState, params, cfg: td3.TD3Config,
             batch["m"] = one_hot(batch["m"], cfg.maneuver_dim, net_dtype)
             batch["m1"] = batch["m"]
             _, losses = td3.train_step(s.td3_state, cfg, batch, do_actor)
+            per_update.append(torch.stack(
+                [losses[k].to(torch.float32) for k in LOSSES]))
+    # (U, 3): each update's losses (LOSSES), 0 on a step without updates
+    update_losses = (torch.stack(per_update) if per_update else torch.zeros(
+        (loop_cfg.updates_per_step, len(LOSSES)), dtype=torch.float32,
+        device=dev))
+    if kind:
+        profiling.count("td3.updates", len(kind))
+        profiling.count("td3.actor_updates", sum(kind))
     done = term | trunc
     noise = torch.where(done[:, None], 0.0, noise)
     ep_count = s.ep_count + done.to(torch.int32)
@@ -327,7 +339,11 @@ def _step(state: LoopState, params, cfg: td3.TD3Config,
     out = {**per_env,
            # batch-mean per-laneline distances (vis_utils.py's logging)
            "laneline_distances": lines.mean(dim=0),
-           **{k: v.to(torch.float32) for k, v in losses.items()}}
+           # the last update's losses, as the JAX package's chunk gives them
+           **{k: update_losses[-1, j] if len(update_losses)
+              else torch.zeros((), dtype=torch.float32, device=dev)
+              for j, k in enumerate(LOSSES)},
+           "update_losses": update_losses}
     with torch.no_grad():
         graphs.copy_into(s.vstate, vstate)
         s.queue.copy_(queue)
@@ -340,9 +356,10 @@ def _step(state: LoopState, params, cfg: td3.TD3Config,
         rt.t.add_(1)
 
 
-def _outputs(state: LoopState, params, b: int) -> Dict[str, torch.Tensor]:
-    """One step's outputs of a b-env batch, zeros of their shapes and
-    dtypes."""
+def _outputs(state: LoopState, params, b: int,
+             updates: int) -> Dict[str, torch.Tensor]:
+    """One step's outputs of a b-env batch with `updates` updates a step,
+    zeros of their shapes and dtypes."""
     dev = state.queue.device
     dtype = state.vstate.env.car.position.dtype
     n_lines = fenv._info(params, state.vstate.env)["laneline_distances"]
@@ -354,7 +371,9 @@ def _outputs(state: LoopState, params, b: int) -> Dict[str, torch.Tensor]:
         "laneline_distances": torch.zeros(n_lines.shape[1:], dtype=dtype,
                                           device=dev),
         **{k: torch.zeros((), dtype=torch.float32, device=dev)
-           for k in ("critic1_loss", "critic2_loss", "actor_loss")},
+           for k in LOSSES},
+        "update_losses": torch.zeros((updates, len(LOSSES)),
+                                     dtype=torch.float32, device=dev),
     }
 
 
@@ -376,8 +395,14 @@ def chunk(
     `models.tinycar_net.encoder_apply_fn` of a frozen encoder,
     train_td3.py:66-67,152-155). Returns (state, outputs), each output
     (T, ...): reward, done, sigma, cte (B per step), laneline_distances
-    (the batch mean), critic1_loss, critic2_loss, actor_loss (0 where
-    skipped).
+    (the batch mean), critic1_loss, critic2_loss, actor_loss (the step's
+    last update's; 0 where skipped), update_losses (U, 3): every update's
+    critic1, critic2 and actor loss (LOSSES; actor 0 on a critic-only
+    update, all 0 on a step without updates), U = updates_per_step.
+
+    The graphs write into buffers of the longest chunk run since they
+    were captured: a chunk of fewer steps replays the same graphs and
+    returns its first rows; a longer one captures anew.
 
     On a CUDA state with `graph`, steps replay captured graphs (module
     docstring); otherwise each step runs eagerly. `draws` (tests only)
@@ -407,18 +432,20 @@ def chunk(
                              "not defined under a mesh")
         dp = _DataParallel(mesh, state.queue.shape[0])
     n_global = state.queue.shape[0] if dp is None else dp.n
-    key = (id(params), id(encoder_apply), id(stack), cfg, loop_cfg, n_steps,
+    key = (id(params), id(encoder_apply), id(stack), cfg, loop_cfg,
            draws is not None, id(obs_render_fn), id(mesh))
     rt = state.runtime
-    if rt is None or rt.key != key:
-        rt = state.runtime = _Runtime(key, n_steps,
-                                      _outputs(state, params, n_global), dev)
+    if rt is None or rt.key != key or rt.steps < n_steps:
+        rt = state.runtime = _Runtime(
+            key, n_steps, _outputs(state, params, n_global,
+                                   loop_cfg.updates_per_step), dev)
     if draws is not None:
         if rt.draws is None:
-            rt.draws = {k: v.to(dev).clone() for k, v in draws.items()}
-        else:
-            for k, v in draws.items():
-                rt.draws[k].copy_(v)
+            rt.draws = {k: torch.zeros((rt.steps, *v.shape[1:]),
+                                       dtype=v.dtype, device=dev)
+                        for k, v in draws.items()}
+        for k, v in draws.items():
+            rt.draws[k][:n_steps].copy_(v)
     rt.t.zero_()
     kinds, filled, steps = step_kinds(state, cfg, loop_cfg, n_steps,
                                       n_global)
@@ -457,7 +484,7 @@ def chunk(
             rt.held[kind] = held
         # the capture recorded the step index's increment, not run it
     state.filled_host, state.steps_host = filled, steps
-    return state, {k: v.clone() for k, v in rt.out.items()}
+    return state, {k: v[:n_steps].clone() for k, v in rt.out.items()}
 
 
 def set_sigma_target(state: LoopState, level: float) -> None:

@@ -71,7 +71,11 @@ no slot under `camera.max_visible_segments`; nonzero means lost pixels,
 and an operator raises the budget until it reads 0. `render.front`
 (host): the envs whose bundle the front kernel (ops/csrc/front.cu) wrote,
 counted per render like `render.copies`; beside the envs rendered, the
-share of renders the kernel takes. `trace.marks_lost`:
+share of renders the kernel takes. `td3.updates`, `td3.actor_updates`
+(host): the TD3 updates a `train.td3_loop` step ran, and of them the
+actor updates; `td3.rows_inserted` (host): the replay rows the step
+wrote (its batch, duplicates of a slot included). Each is counted per
+eager step and per replay, like `render.copies`. `trace.marks_lost`:
 device-span marks the ring overwrote.
 """
 from __future__ import annotations
