@@ -37,6 +37,15 @@ any failed check:
    beside its bytes bound. Every later phase that counts render launches
    holds the front kernel's to one a fast-stroke render: as many as the
    masks and rank kernels' together (`check_front`).
+   3c. the car kernel (ops/csrc/car.cu): every output of `env.step`'s
+   per-car work against the torch composition it replaces
+   (`env._car_work_plain`), bit for bit, on the same two configurations
+   at the same batches: the spawn-table states and 40 steps from them
+   (Stanley's steering plus noise past the action clamp, maneuvers
+   cycling so that cars enter u-turns every step, wrapped on odd steps,
+   finished cars respawned), then each timed in a replayed CUDA graph
+   (the kernel also eagerly, back to back) beside its bound. Phases 7, 8
+   and 9 hold its launches to their env.step calls (`check_car`).
 4. probe kernels: the output-floor probes of benchmarks/exp_r2.py (K8
    ovl, K9 fill, K10 skip) against their plain versions, bit for bit, on
    outputs pre-filled with a sentinel: N = 1, 7 and 4096 envs; KK = 0, 1,
@@ -71,7 +80,7 @@ any failed check:
    (vector.step with Stanley actions and max_episode_steps=1000, the
    observation rendered every step and consumed by a checksum), eagerly.
    The masks kernel's launch count, and the front kernel's, must equal
-   the renders. Reports env-steps/s (median of repeats, with spread) and
+   the renders, and the car kernel's the env.step calls. Reports env-steps/s (median of repeats, with spread) and
    per-stage ms (the front kernel, which runs the projection and the
    compaction, beside its plain version, the torch composition), the
    kernel alone also in back-to-back calls beside K9's fill and `fill_`
@@ -82,10 +91,10 @@ any failed check:
    step captured once and replayed BENCH_CHUNK (400) times a repeat: its
    JSON line (bench.py's keys and `device`) and every repeat's rate in
    the order the repeats ran, each with the card's SM clock, memory
-   clock, power draw and temperature read after it, the front and masks
-   kernels launched once each during capture, a profiler trace of TRACED
-   (20) replays holding one front and one masks kernel record a step and
-   no sort kernel (and the device's idle share),
+   clock, power draw and temperature read after it, the front, masks and
+   car kernels launched once each during capture, a profiler trace of
+   TRACED (20) replays holding one front, one masks and one car kernel
+   record a step and no sort kernel (and the device's idle share),
    then once the host's ms per replay call (replays enqueued while a spin
    kernel holds the card), and 8
    replayed steps equal bit for bit to 8 eager steps from the same state
@@ -96,7 +105,7 @@ any failed check:
    device idle share and peak memory; the exact kernel alone and in
    back-to-back calls beside its float32 output and the store floor,
    as phase 7 times the masks kernel; exact-kernel launches equal to the
-   renders and no masks-kernel launch; a small rollout against the CPU
+   renders, car-kernel launches to the steps, and no masks-kernel launch; a small rollout against the CPU
    port (frames equal wherever the two devices' exact bundles are); and a
    sample of the card's exact frames against the port's
    pure-Python cv2 oracle (`thick_stroke_mask_ref`), segment by segment.
@@ -291,6 +300,9 @@ any failed check:
    `launches_train`.
 21. results: the `kernels` JSON line (K1-K10 and the front kernel, whose
    entry gives phase 7's launches and phase 3b's times on simple_layout;
+   the car kernel, whose entry gives phase 7's launches, phase 3c's times
+   on simple_layout and phase 8's and 9's launches, `launches_graph` and
+   `launches_exact`;
    the masks, rank and front kernels' entries also give their launches
    on the IL phase's paths, `launches_il`, on phase 18's,
    `launches_host`, and on config 3's (19a), `launches_b3`, the rank and
@@ -320,7 +332,8 @@ os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 # the card's line and the bounds' peaks and rule, shared with the port's
 # benchmarks (an ImportError here: run from the root of a checkout)
-from tinycarlo_torch.utils.helper import (PEAK_F32_PER_S, PEAK_I32_PER_S,
+from tinycarlo_torch.utils.helper import (PEAK_F32_INSTR_PER_S,
+                                          PEAK_F32_PER_S, PEAK_I32_PER_S,
                                           bound, card_line)
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -771,6 +784,8 @@ def main():
     clock.done("kernels")
     front_times = front_phase(card, rk, fenv)
     clock.done("front kernel")
+    car_times = car_phase(card, fenv, stanley_steering)
+    clock.done("car kernel")
 
     # ---- 4. probe kernels against their plain versions ---------------------
     probe_errs = check_probe_kernels(pk, "cuda")
@@ -791,17 +806,21 @@ def main():
     # ---- 7. main path --------------------------------------------------------
     kernels = [classes_path(card, rk, fenv, vector, stanley_steering, params,
                             max_err, FAST_REPEATS)]
-    front = front_entry(front_times, kernels[0].pop("run")["front_launches"])
+    main_run = kernels[0].pop("run")
+    front = front_entry(front_times, main_run["front_launches"])
+    car = car_entry(car_times, main_run["car_launches"])
     clock.done("main path")
 
     # ---- 8. bench, replayed as a CUDA graph ----------------------------------
-    graph_bench(card, rk)
+    car["launches_graph"] = graph_bench(card, rk)
     clock.done("bench (CUDA graph)")
 
     # ---- 9. exact classes ----------------------------------------------------
     exact_entry = classes_path(card, rk, fenv, vector, stanley_steering,
                                params_exact, exact_err, FAST_REPEATS)
-    check_exact_oracle(fenv, rk, params_exact, exact_entry.pop("run"))
+    exact_run = exact_entry.pop("run")
+    car["launches_exact"] = exact_run["car_launches"]
+    check_exact_oracle(fenv, rk, params_exact, exact_run)
     clock.done("exact classes")
 
     # ---- 10, 11. serving, fast and exact -------------------------------------
@@ -814,7 +833,7 @@ def main():
         kernels.append(exact_entry)
         serve_exact(card, pool)
         clock.done("exact serving")
-    kernels += [front] + soa_entries + probe_entries
+    kernels += [front, car] + soa_entries + probe_entries
 
     # ---- 12. the masks, rank and exact kernels at 480x640 -------------------
     kernels_480x640(card, rk)
@@ -989,6 +1008,180 @@ def front_entry(times, launches):
     }
 
 
+# phase 3c: steps from the spawn table, and the kernel's operations a
+# packed edge a car (and a lanepath edge a u-turn entry): its two
+# distances (2 subtractions, 2 products, a sum and a root each), their sum
+# and its absolute value
+CAR_STEPS = 40
+CAR_FLOPS_PER_EDGE = 14
+
+
+def car_outputs(out):
+    """The outputs of `env._car_work` (or its plain version) as one tuple
+    of tensors in a fixed order, float32 viewed as int32 bits."""
+    import torch
+
+    car, truncated, info, reward, terminated = out
+    ts = (car.position, car.position_front, car.rotation, car.steering_angle,
+          car.radius, car.velocity, car.local_path, car.local_path_len,
+          car.last_maneuver, truncated, info["cte"], info["heading_error"],
+          info["laneline_distances"], info["local_path"],
+          info["local_path_len"], info["velocity"], reward, terminated)
+    return tuple(t.view(torch.int32) if t.is_floating_point() else t
+                 for t in ts)
+
+
+def car_phase(card, fenv, stanley_steering):
+    """Phase 3c: the car kernel (`ck.car_kernel`, as `env._car_work`
+    launches it) against its plain version `env._car_work_plain`, every
+    output bit for bit, on each of FRONT_CELLS' configurations at its
+    batch: the spawn-table states, then CAR_STEPS steps from them, each
+    compared, driven by Stanley's steering plus noise past the action
+    clamp with the maneuvers cycling ((step + env) % 4: u-turn entries on
+    every step), wrapped on odd steps, truncated or terminated cars
+    respawned. Then both timed in replayed CUDA graphs of 30 calls on the
+    last state under the cell's maneuvers (simple_layout 0, knuffingen
+    env % 4), the kernel also eagerly back to back, beside its bound: the
+    state, the action and the map read once and the outputs written once;
+    CAR_FLOPS_PER_EDGE a packed edge a car and a lanepath edge a u-turn
+    entry, at the float32 instruction rate (built with -fmad=false).
+    Returns {config: its times}."""
+    import numpy as np
+    import torch
+
+    from tinycarlo_torch import car as car_mod
+    from tinycarlo_torch import vector
+    from tinycarlo_torch.ops import car_kernel as ck
+
+    times = {}
+    for name, n in FRONT_CELLS:
+        path = os.path.join(REPO, "portbench", "configs", f"{name}.json")
+        with open(path) as f:
+            cfg = json.load(f)["config"]
+        cfg["map"]["json_path"] = os.path.join(os.path.dirname(path),
+                                               cfg["map"]["json_path"])
+        params = fenv.make_env_params(cfg)
+        md, car_cfg = params.map_data, params.cfg.car
+        rows = torch.arange(n, device="cuda") % md.spawns.count
+        car = car_mod.car_reset(md, car_cfg, rows)
+        info = car_mod.car_info(md, car_cfg, car)
+        env_ids = torch.arange(n, device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(n)
+        bad = torch.zeros(18, dtype=torch.int64, device="cuda")
+        events = torch.zeros(3, dtype=torch.int64, device="cuda")
+        launches = ck.car_kernel.launches
+        for step in range(CAR_STEPS + 1):
+            steer = stanley_steering(info["cte"], info["heading_error"], 0.5,
+                                     1.0, car_cfg.max_steering_angle)
+            noise = torch.rand((n, 2), device="cuda", generator=gen)
+            control = torch.stack([0.3 + noise[:, 0], steer.float()
+                                   + 0.6 * (noise[:, 1] - 0.5)], dim=-1)
+            man = ((step + env_ids) % 4).to(torch.int32)
+            action = {"car_control": control, "maneuver": man}
+            wrapped = step % 2 == 1
+            got = fenv._car_work(params, car, action, wrapped)
+            want = fenv._car_work_plain(params, car, action, wrapped)
+            for i, (g, w) in enumerate(zip(car_outputs(got),
+                                           car_outputs(want))):
+                check(g.dtype == w.dtype and g.shape == w.shape,
+                      f"car kernel: {name} output {i} is {g.dtype} "
+                      f"{tuple(g.shape)}, its plain version's {w.dtype} "
+                      f"{tuple(w.shape)}")
+                bad[i] += (g != w).sum()
+            new, truncated, info, _, terminated = got
+            events += torch.stack([
+                truncated.sum(), (truncated & (new.last_maneuver != man)).sum(),
+                ((man == 2) & (car.last_maneuver != 2)).sum()])
+            done = truncated | (info["cte"].abs() > 10 * car_cfg.track_width)
+            fresh = car_mod.car_reset(md, car_cfg,
+                                      (rows + step + 1) % md.spawns.count)
+            car = vector._select(done, fresh, new)
+            info = car_mod.car_info(md, car_cfg, car)
+        torch.cuda.synchronize()
+        check(ck.car_kernel.launches - launches == CAR_STEPS + 1,
+              f"car kernel: {ck.car_kernel.launches - launches} launches "
+              f"for {CAR_STEPS + 1} steps of {name}")
+        check(bad.tolist() == [0] * 18, f"car kernel: {name}'s outputs "
+              f"differ from its plain version's (elements a field: "
+              f"{bad.tolist()})")
+        n_trunc, n_kept, n_uturn = events.tolist()
+
+        man = (env_ids % 4 if name.startswith("knuffingen")
+               else env_ids * 0).to(torch.int32)
+        control = torch.stack([torch.full((n,), 0.5, device="cuda"),
+                               stanley_steering(info["cte"],
+                                                info["heading_error"], 0.5,
+                                                1.0,
+                                                car_cfg.max_steering_angle
+                                                ).float()], dim=-1)
+        action = {"car_control": control, "maneuver": man}
+        ms = {key: graph_ms(fn) for key, fn in (
+            ("kernel", lambda: fenv._car_work(params, car, action, False)),
+            ("plain", lambda: fenv._car_work_plain(params, car, action,
+                                                   False)))}
+        eager = back_to_back_ms({"kernel": lambda: fenv._car_work(
+            params, car, action, False)})
+        out = fenv._car_work(params, car, action, False)
+        lp = md.lanepath
+        read = [getattr(car, f.name) for f in dataclasses.fields(car)] + [
+            control, man, lp.nodes, lp.edges, lp.edge_mask, lp.next_table,
+            lp.next_count, lp.prev_table, lp.prev_count,
+            md.packed_nodes[0], md.packed_edges[0]]
+        n_bytes = sum(t.numel() * t.element_size()
+                      for t in read + list(car_outputs(out)))
+        entries = int(((man == 2) & (car.last_maneuver != 2)).sum())
+        n_ops = CAR_FLOPS_PER_EDGE * (
+            n * md.packed_layer_bounds[-1]
+            + entries * int(lp.edge_mask.sum()))
+        least, kind, _, _ = bound(n_bytes, n_ops, PEAK_F32_INSTR_PER_S)
+        times[name] = {"ms": ms["kernel"], "plain_ms": ms["plain"],
+                       "bound_ms": least, "bound_by": kind}
+        print("car kernel: " + json.dumps({
+            "config": name, "envs": n, "steps_equal": CAR_STEPS + 1,
+            "truncations": n_trunc, "failed_first_hops": n_kept,
+            "uturn_entries": n_uturn, "timed_uturn_entries": entries,
+            "ms": round(ms["kernel"], 4), "bound_ms": round(least, 5),
+            "bound": kind, "bytes": n_bytes, "ops": n_ops,
+            "plain_ms": round(ms["plain"], 4),
+            "eager_ms": round(eager["kernel"], 4), "card": card}))
+    return times
+
+
+def check_car(launches, steps, what):
+    """The car kernel takes every `env.step` of a CUDA float32 state
+    without a LanelineGrid once: its launches, counted from 0 over a run,
+    are the run's env.step calls (eager steps and captures; a replay
+    passes no wrapper)."""
+    check(launches == steps, f"{what}: the car kernel launched {launches} "
+          f"times for {steps} env.step calls")
+
+
+def car_entry(times, launches):
+    """The car kernel's entry of the `kernels` line: the main path's
+    (phase 7) launches, and phase 3c's times on simple_layout, the main
+    path's map, beside its plain version."""
+    t = times["simple_layout-128x160"]
+    return {
+        "name": "car",
+        "route": "cuda",
+        "source": "tinycarlo_torch/ops/csrc/car.cu",
+        "replaces": "tinycarlo_tpu/car.py:85 (car_step), "
+                    "tinycarlo_tpu/car.py:171 (find_local_path), "
+                    "tinycarlo_tpu/car.py:282 (car_info), "
+                    "tinycarlo_tpu/env.py:330 (default_reward), "
+                    "tinycarlo_tpu/env.py:338 (default_termination)",
+        "launches": launches,
+        # every output is held bit-equal to the plain version's (phase 3c)
+        "max_abs_err": 0,
+        "ms": t["ms"],
+        "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"],
+        # no single PyTorch call steps the car and walks its path
+        "library_ms": None,
+    }
+
+
 def classes_path(card, rk, fenv, vector, stanley_steering, params, err,
                  repeats):
     """Phases 7 and 9: the bench workload on the params' stroke, its
@@ -999,8 +1192,10 @@ def classes_path(card, rk, fenv, vector, stanley_steering, params, err,
     compact, kernel, plain, symbol = kernel_pair(rk, params)
     exact = kernel is rk.exact_kernel
     what = "exact classes" if exact else "main path"
+    from tinycarlo_torch.ops import car_kernel as ck
+
     for k in (rk.masks_kernel, rk.rank_kernel, rk.exact_kernel,
-              rk.front_kernel):
+              rk.front_kernel, ck.car_kernel):
         k.launches = 0
     torch.cuda.reset_peak_memory_stats()
     run = run_main_path(fenv, vector, params, N_ENVS, CHUNK, repeats)
@@ -1010,6 +1205,9 @@ def classes_path(card, rk, fenv, vector, stanley_steering, params, err,
     check(launches == renders,
           f"{kernel.NAME} kernel launched {launches} times for {renders} "
           "renders")
+    # each step of the bench body is one vector.step, one env.step
+    run["car_launches"] = ck.car_kernel.launches
+    check_car(run["car_launches"], run["steps"], what)
     run["front_launches"] = rk.front_kernel.launches
     check(run["front_launches"] == (0 if exact else renders),
           f"the front kernel launched {run['front_launches']} times for "
@@ -1022,7 +1220,8 @@ def classes_path(card, rk, fenv, vector, stanley_steering, params, err,
     rates = sorted(run["rates"])
     print(f"{what}: {N_ENVS} envs x {renders} steps, {launches} "
           f"{kernel.NAME} kernel launches, {run['front_launches']} front "
-          f"kernel launches, checksum {run['checksum']}")
+          f"kernel launches, {run['car_launches']} car kernel launches, "
+          f"checksum {run['checksum']}")
     print(f"{what} env-steps/s: median {statistics.median(rates):.1f} "
           f"(min {rates[0]:.1f}, max {rates[-1]:.1f}, {repeats} repeats of "
           f"{CHUNK} steps) on {card}; peak memory {peak_gb:.2f} GB")
@@ -1727,23 +1926,27 @@ def probe_modes(card, pk, inputs, errs):
 def graph_bench(card, rk):
     """Phase 8: tinycarlo_torch.benchmarks.bench at 4096 envs, the step
     replayed as a CUDA graph: its JSON line with bench.py's keys and
-    `device`; the masks kernel launched once during capture (after the
-    warm-up's launches) and recorded once a step in a profiler trace of a
-    replayed chunk; the device's idle share; 8 replayed steps equal bit
-    for bit to 8 eager steps from one state and generator seed, with
-    respawns (max_episode_steps 3), the generator advanced as far."""
+    `device`; the masks, front and car kernels launched once each during
+    capture (after the warm-up's launches) and recorded once a step in a
+    profiler trace of a replayed chunk; the device's idle share; 8
+    replayed steps equal bit for bit to 8 eager steps from one state and
+    generator seed, with respawns (max_episode_steps 3), the generator
+    advanced as far. Returns the car kernel's launches (warm-up and
+    capture)."""
     from tinycarlo_torch.benchmarks import bench as pbench
+    from tinycarlo_torch.ops import car_kernel as ck
 
     kernels = (rk.masks_kernel, rk.rank_kernel, rk.exact_kernel,
-               rk.front_kernel)
+               rk.front_kernel, ck.car_kernel)
     for k in kernels:
         k.launches = 0
     result = pbench.measure("cuda")
     launched = {k.NAME: k.launches for k in kernels}
     check(launched == {"masks": pbench.WARMUP + 1, "rank": 0, "exact": 0,
-                       "front": pbench.WARMUP + 1},
+                       "front": pbench.WARMUP + 1, "car": pbench.WARMUP + 1},
           f"bench launches {launched}: not {pbench.WARMUP} warm-up steps and "
-          "one captured step of the front and masks kernels")
+          "one captured step of the front, masks and car kernels")
+    check_car(launched["car"], pbench.WARMUP + 1, "bench")
     line = pbench.result_line(result, pbench.N_ENVS, pbench.REPEATS, card)
     keys = {"metric", "value", "unit", "vs_baseline",
             "baseline_reference_steps_per_s", "baseline_measured_live",
@@ -1770,11 +1973,14 @@ def graph_bench(card, rk):
                                                       calls=TRACED)
     masks_ms = kernel_device_ms(by_name, "masks_kernel")
     front_ms = kernel_device_ms(by_name, "front_kernel")
+    car_ms = kernel_device_ms(by_name, "car_kernel")
     sorts = [key[:60] for key in by_name if "sort" in key.lower()
              or "topk" in key.lower()]
     check(not sorts, f"bench: the replayed step sorts: {sorts}")
     check(front_ms is not None, f"bench: a trace of {TRACED} replays does "
           "not hold one front kernel record a step")
+    check(car_ms is not None, f"bench: a trace of {TRACED} replays does "
+          "not hold one car kernel record a step")
     if busy_ms is None or masks_ms is None:
         held = {key[:60]: count for key, (_, count) in by_name.items()
                 if "masks" in key}
@@ -1789,8 +1995,9 @@ def graph_bench(card, rk):
           f"idle share {1 - busy_ms / traced_ms:.4f}, "
           f"{sum(c for _, c in by_name.values()):g} kernel records a step; "
           f"masks kernel {masks_ms:.4f} ms device, front kernel "
-          f"{front_ms:.4f} ms device, one record each a step over "
-          f"{TRACED} traced replays, no sort kernel")
+          f"{front_ms:.4f} ms device, car kernel {car_ms:.4f} ms device, "
+          f"one record each a step over {TRACED} traced replays, no sort "
+          "kernel")
     for key, ms, count in top:
         print(f"  {ms:.4f} ms/step x{count}: {key}")
     # once, after the timed repeats and the trace: what enqueuing one
@@ -1809,6 +2016,7 @@ def graph_bench(card, rk):
     print(f"bench graph: 8 replayed steps equal to 8 eager steps bit for bit "
           f"({same['respawns']} respawns; generator offset {graph_offset} "
           "after both)")
+    return launched["car"]
 
 
 def run_main_path(fenv, vector, params, n_envs, chunk, repeats):

@@ -1589,3 +1589,243 @@ def test_front_kernel_in_the_render_and_its_graph():
         graph.replay()
         torch.cuda.synchronize()
         assert torch.equal(static, eager)
+
+
+# ---- the env step's per-car work (ops/csrc/car.cu) -------------------------
+
+# every output of the per-car work, in `_car_fields`' order
+CAR_FIELDS = ("position", "position_front", "rotation", "steering_angle",
+              "radius", "velocity", "local_path", "local_path_len",
+              "last_maneuver", "truncated", "cte", "heading_error",
+              "laneline_distances", "info_local_path", "info_local_path_len",
+              "info_velocity", "reward", "terminated")
+
+
+def _car_fields(out):
+    """The outputs of `env._car_work` (or its plain version) as one tuple
+    of tensors, floats viewed as int32 bits."""
+    car, truncated, info, reward, terminated = out
+    ts = (car.position, car.position_front, car.rotation, car.steering_angle,
+          car.radius, car.velocity, car.local_path, car.local_path_len,
+          car.last_maneuver, truncated, info["cte"], info["heading_error"],
+          info["laneline_distances"], info["local_path"],
+          info["local_path_len"], info["velocity"], reward, terminated)
+    return tuple(_bits(t) for t in ts)
+
+
+def _car_compare(params, car, action, wrapped, bad):
+    """One step of the kernel and of the composition from `car`; adds
+    each field's count of differing elements to `bad` (on the card, no
+    wait) and returns the kernel's outputs."""
+    from tinycarlo_torch import env as fenv
+    from tinycarlo_torch.ops import car_kernel as ck
+
+    before = ck.car_kernel.launches
+    got = fenv._car_work(params, car, action, wrapped)
+    assert ck.car_kernel.launches == before + 1
+    want = fenv._car_work_plain(params, car, action, wrapped)
+    for i, (g, w_) in enumerate(zip(_car_fields(got), _car_fields(want))):
+        assert g.dtype == w_.dtype and g.shape == w_.shape, CAR_FIELDS[i]
+        bad[i] += (g != w_).sum()
+    return got
+
+
+def _car_actions(rng, n, step, man_dtype):
+    """Random actions past the clamp, steering 0 on every fourth env (the
+    straight branch once the rate limit lets it), reverse on every eighth,
+    maneuver (step + env) % 4."""
+    control = rng.uniform(-1.3, 1.3, (n, 2)).astype(np.float32)
+    control[::4, 1] = 0.0
+    control[1::8, 0] = -np.abs(control[1::8, 0])
+    man = (step + np.arange(n)) % 4
+    return {"car_control": torch.tensor(control, device="cuda"),
+            "maneuver": torch.tensor(man, dtype=man_dtype, device="cuda")}
+
+
+# (config, envs): both benchmark maps at 1, 512 and 4096 envs
+CAR_CASES = [(name, n) for name in ("simple_layout-128x160",
+                                    "knuffingen-480x640")
+             for n in (1, 512, 4096)]
+
+
+@pytest.mark.parametrize("wrapped", [False, True])
+@pytest.mark.parametrize("name,n", CAR_CASES)
+def test_car_kernel_matches_composition(name, n, wrapped):
+    """The car kernel's step equals the torch composition's, every output
+    bit for bit, over 320 steps of random actions with the maneuvers
+    cycling (u-turn entries every step), reverse and straight driving,
+    respawns on truncation, a cte past 10 track widths or 80 steps; the
+    steps include truncations and failed first hops (int64 maneuvers when
+    wrapped)."""
+    _require_cuda()
+    from tinycarlo_torch import car as car_mod
+    from tinycarlo_torch import vector
+
+    params = _front_params(name)
+    md = params.map_data
+    tw = params.cfg.car.track_width
+    rows = torch.arange(n, device="cuda") % md.spawns.count
+    car = car_mod.car_reset(md, params.cfg.car, rows)
+    age = torch.zeros(n, dtype=torch.int32, device="cuda")
+    rng = np.random.default_rng(n + 7 * wrapped)
+    bad = torch.zeros(len(CAR_FIELDS), dtype=torch.int64, device="cuda")
+    events = torch.zeros(3, dtype=torch.int64, device="cuda")
+    man_dtype = torch.int64 if wrapped else torch.int32
+    for step in range(320):
+        action = _car_actions(rng, n, step, man_dtype)
+        new, truncated, info, _, _ = _car_compare(params, car, action,
+                                                  wrapped, bad)
+        man = action["maneuver"].to(torch.int32)
+        kept = truncated & (new.last_maneuver != man)  # failed first hop
+        events += torch.stack([truncated.sum(), kept.sum(),
+                               ((man == 2) & (car.last_maneuver != 2)).sum()])
+        age += 1
+        done = truncated | (info["cte"].abs() > 10 * tw) | (age >= 80)
+        fresh = car_mod.car_reset(
+            md, params.cfg.car, (rows + step) % md.spawns.count)
+        car = vector._select(done, fresh, new)
+        age = torch.where(done, 0, age)
+    torch.cuda.synchronize()
+    assert bad.tolist() == [0] * len(CAR_FIELDS), dict(
+        zip(CAR_FIELDS, bad.tolist()))
+    n_trunc, n_kept, n_uturn = events.tolist()
+    assert n_uturn > 0
+    if n >= 512:
+        assert n_trunc > n_kept > 0
+
+
+def _car_edge_state(params, n_rows):
+    """A state of crafted cars: parked on packed-edge endpoints (velocity
+    and action 0, so the rear axle stays on the node), on vertical
+    lanepath edges, on edges into a dead end (a failed first hop) and one
+    hop before one (a walk that truncates), the rest at spawn rows; the
+    crafted cars' last maneuver is 1. Returns (state, crafted rows)."""
+    from tinycarlo_torch import car as car_mod
+
+    md = params.map_data
+    lp = md.lanepath
+    rows = torch.arange(n_rows, device="cuda") % md.spawns.count
+    car = car_mod.car_reset(md, params.cfg.car, rows)
+    nodes, edges = lp.nodes, lp.edges[lp.edge_mask]
+    pn = md.packed_nodes[0]
+    pe = md.packed_edges[0][:md.packed_layer_bounds[-1]]
+    dx = nodes[edges[:, 1], 0] - nodes[edges[:, 0], 0]
+    vertical = edges[dx == 0]
+    dead = torch.nonzero(lp.node_mask & (lp.next_count == 0))[:, 0]
+    into_dead = edges[torch.isin(edges[:, 1], dead)]
+    # (pp, p) whose p leads on to a dead end alone, pp with a predecessor
+    only = into_dead[lp.next_count[into_dead[:, 0]] == 1, 0]
+    before_dead = edges[torch.isin(edges[:, 1], only)
+                        & (lp.prev_count[edges[:, 0]] > 0)]
+    groups = [("endpoint", pn[pe[:, 0]]), ("vertical", vertical),
+              ("into_dead", into_dead), ("before_dead", before_dead)]
+    r = 0
+    for kind, src in groups:
+        k = min(len(src), 8)
+        assert k > 0, kind
+        sl = slice(r, r + k)
+        if kind == "endpoint":
+            car.position[sl] = src[:k]
+        else:
+            e = src[:k].to(torch.int32)
+            car.local_path[sl] = e[:, None, :].expand(-1, 4, 2)
+            car.local_path_len[sl] = 4
+            # the rear axle 0.02 m behind the edge's end, on its line
+            p0, p1 = nodes[e[:, 0]], nodes[e[:, 1]]
+            d = p1 - p0
+            d = d / torch.linalg.norm(d, dim=-1, keepdim=True)
+            car.position[sl] = p1 - 0.02 * d
+            car.rotation[sl] = torch.atan2(d[:, 1], d[:, 0])
+        car.velocity[sl] = 0.0 if kind == "endpoint" else 0.1
+        car.last_maneuver[sl] = 1
+        r += k
+    return car, r
+
+
+def test_car_kernel_edge_cases():
+    """Bit-equal on crafted cars (`_car_edge_state`): rear axles on packed
+    endpoints (within_edge_bounds' early True), cte on vertical edges, a
+    failed first hop (path and last maneuver kept) and a lookahead that
+    truncates, each with every maneuver, wrapped and not."""
+    _require_cuda()
+    for name in ("simple_layout-128x160", "knuffingen-480x640"):
+        params = _front_params(name)
+        car, r = _car_edge_state(params, 64)
+        n = car.position.shape[0]
+        bad = torch.zeros(len(CAR_FIELDS), dtype=torch.int64, device="cuda")
+        for m in range(4):
+            control = torch.zeros((n, 2), device="cuda")
+            control[8:r, 0] = 0.5
+            action = {"car_control": control,
+                      "maneuver": torch.full((n,), m, dtype=torch.int32,
+                                             device="cuda")}
+            for wrapped in (False, True):
+                new, truncated, info, _, _ = _car_compare(
+                    params, car, action, wrapped, bad)
+            if m == 0:
+                # parked on the node: the rear axle has not moved
+                assert torch.equal(new.position[:8], car.position[:8])
+                kept = truncated & (new.last_maneuver != m)
+                assert bool(kept[:r].any()) and bool(
+                    (truncated & ~kept)[:r].any()), name
+        torch.cuda.synchronize()
+        assert bad.tolist() == [0] * len(CAR_FIELDS), (name, dict(
+            zip(CAR_FIELDS, bad.tolist())))
+
+
+def test_car_kernel_graph_and_counters():
+    """`env.step` launches the car kernel once a step and counts its envs
+    in "car.kernel"; "car.resnaps" reads the u-turn entries the
+    composition's inputs give (0 at maneuver 0); a captured and replayed
+    step equals the eager step; an expanded action gives the
+    composition's step."""
+    _require_cuda()
+    from tinycarlo_torch import env as fenv
+    from tinycarlo_torch.ops import car_kernel as ck
+    from tinycarlo_torch.utils import profiling
+
+    params = _front_params("knuffingen-480x640")
+    n = 512
+    rows = torch.arange(n, device="cuda") % params.map_data.spawns.count
+    state, _, _ = fenv.reset(params, n, spawn_row=rows, render=False)
+    rng = np.random.default_rng(3)
+    for step, cycle in enumerate((False, True, True)):
+        action = _car_actions(rng, n, step, torch.int32)
+        if not cycle:
+            action["maneuver"].zero_()
+        entries = int(((action["maneuver"] == 2)
+                       & (state.car.last_maneuver != 2)).sum())
+        before = ck.car_kernel.launches
+        with profiling.tracing() as tr:
+            state, _, _, _, _, _ = fenv.step(params, state, action,
+                                             render=False)
+        assert ck.car_kernel.launches == before + 1
+        assert tr.counters["car.kernel"] == n
+        assert tr.counters["car.resnaps"] == entries
+        assert (entries > 0) == cycle
+    action = _car_actions(rng, n, 5, torch.int32)
+    eager = fenv.step(params, state, action, render=True)
+    graph = torch.cuda.CUDAGraph()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fenv.step(params, state, action, render=True)
+    torch.cuda.current_stream().wait_stream(stream)
+    with torch.cuda.graph(graph):
+        static = fenv.step(params, state, action, render=True)
+    flat = lambda out: [_bits(t) for t in (  # noqa: E731
+        *(getattr(out[0].car, f) for f in CAR_FIELDS[:9]), out[1], out[2],
+        out[3], out[4], *out[5].values())]
+    for t in flat(static):
+        t.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    for i, (g, w_) in enumerate(zip(flat(static), flat(eager))):
+        assert torch.equal(g, w_), i
+    # an expanded (strided) action, as callers pass one action to all envs
+    bad = torch.zeros(len(CAR_FIELDS), dtype=torch.int64, device="cuda")
+    action = {"car_control": torch.tensor([[0.4, 0.1]],
+                                          device="cuda").expand(n, 2),
+              "maneuver": torch.tensor([2], device="cuda").expand(n)}
+    _car_compare(params, state.car, action, False, bad)
+    assert bad.tolist() == [0] * len(CAR_FIELDS)

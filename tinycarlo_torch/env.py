@@ -28,6 +28,7 @@ from tinycarlo_torch import camera as cam
 from tinycarlo_torch import car as car_mod
 from tinycarlo_torch.config import EnvConfig, load_config
 from tinycarlo_torch.map_compiler import MapData, compile_map
+from tinycarlo_torch.ops import car_kernel as ck
 from tinycarlo_torch.ops import rasterize as ras
 from tinycarlo_torch.ops import rasterize_kernels as rk
 from tinycarlo_torch.utils import profiling
@@ -329,15 +330,45 @@ def step(
     `action` = {"car_control": (B, 2) in [-1, 1], "maneuver": (B,) int}.
     `wrapped=True` disables the default reward/termination, as the
     reference's wrapper flag does (env.py:136-138). Returns (state, obs or
-    None when render=False, reward, terminated, truncated, info).
+    None when render=False, reward, terminated, truncated, info). The
+    per-car work (action clamp, car step, car_info, shaping) is one launch
+    of the car kernel on the card (`_car_work`), then the render.
     """
-    control = torch.clamp(action["car_control"], -1.0, 1.0)  # env.py:118
-    car_state, truncated = car_mod.car_step(
-        params.map_data, params.cfg.car, params.cfg.sim.T, state.car,
-        control[:, 0], control[:, 1], action["maneuver"],
-    )
+    car_state, truncated, info, reward, terminated = _car_work(
+        params, state.car, action, wrapped)
     state = replace(state, car=car_state)
     obs = render_observation_batch(params, state) if render else None
-    info = _info(params, state)
-    reward, terminated = shaping(params, info["cte"], truncated, wrapped)
+    info["position"] = car_state.position
+    info["orientation"] = car_state.rotation
     return state, obs, reward, terminated, truncated, info
+
+
+def _car_work(params: EnvParams, car: car_mod.CarState,
+              action: Dict[str, torch.Tensor], wrapped: bool):
+    """A step's per-car work: (car state, truncated, info without
+    "position" and "orientation", reward, terminated). One launch of the
+    car kernel (ops/csrc/car.cu) where it applies (`ck.applies`:
+    CUDA float32 and no LanelineGrid), its envs counted in the host counter
+    "car.kernel"; elsewhere its plain version, `_car_work_plain`."""
+    md = params.map_data
+    if ck.applies(md, car, action["car_control"]):
+        out = ck.car_kernel(md, params.cfg.car, params.cfg.sim.T, car,
+                            action["car_control"], action["maneuver"],
+                            wrapped)
+        profiling.count("car.kernel", car.position.shape[0])
+        return out
+    return _car_work_plain(params, car, action, wrapped)
+
+
+def _car_work_plain(params: EnvParams, car: car_mod.CarState,
+                    action: Dict[str, torch.Tensor], wrapped: bool):
+    """`_car_work` as torch ops: the action clamp, `car.car_step`,
+    `car.car_info` and `shaping` (reference env.py:118-138)."""
+    control = torch.clamp(action["car_control"], -1.0, 1.0)  # env.py:118
+    car_state, truncated = car_mod.car_step(
+        params.map_data, params.cfg.car, params.cfg.sim.T, car,
+        control[:, 0], control[:, 1], action["maneuver"],
+    )
+    info = car_mod.car_info(params.map_data, params.cfg.car, car_state)
+    reward, terminated = shaping(params, info["cte"], truncated, wrapped)
+    return car_state, truncated, info, reward, terminated

@@ -75,8 +75,13 @@ share of renders the kernel takes. `td3.updates`, `td3.actor_updates`
 (host): the TD3 updates a `train.td3_loop` step ran, and of them the
 actor updates; `td3.rows_inserted` (host): the replay rows the step
 wrote (its batch, duplicates of a slot included). Each is counted per
-eager step and per replay, like `render.copies`. `trace.marks_lost`:
-device-span marks the ring overwrote.
+eager step and per replay, like `render.copies`. `car.kernel` (host):
+the envs whose step's per-car work the car kernel (ops/csrc/car.cu)
+took, counted per `env.step` call like `render.front`; beside the envs
+stepped, the share of steps the kernel takes. `car.resnaps` (device): the
+cars that ran the kernel's u-turn re-snap scan, the u-turn entries (the
+torch composition scans for every car). `trace.marks_lost`: device-span
+marks the ring overwrote.
 """
 from __future__ import annotations
 
