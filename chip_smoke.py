@@ -3211,9 +3211,9 @@ def td3_replays(params):
         stack = td3_config4()[2]
         a, out_a = chunk(a, *args, 9, stack=stack)
         b, out_b = chunk(b, *args, 9, stack=stack, graph=False)
-        rt = a.runtime
-        check(rt.replays == 6 and len(rt.graphs) == 3,
-              f"td3 graphs: {rt.replays} replays of {len(rt.graphs)} "
+        rt = a.runtime.step_graphs
+        check(rt.replays == 6 and rt.captures == 3,
+              f"td3 graphs: {rt.replays} replays of {rt.captures} "
               "graphs, not 6 of 3")
         check(a.generator.get_offset() == b.generator.get_offset(),
               "td3 graphs: the generators' offsets differ")
@@ -3390,7 +3390,7 @@ def il_collect(card, rk, ras, params, cfg):
     st, se = coll.stats, eager.stats
     launches = rk.rank_kernel.launches
     # a trace of replayed units (two collection steps, one render each)
-    unit = next(iter(coll.graphs.values()))
+    unit = next(iter(coll.step_graphs.entries.values()))[0]
 
     def replay():
         coll.t.zero_()
@@ -3490,7 +3490,7 @@ def il_train(card, state, cfg, data):
 
     def replay():
         rt.t.zero_()
-        rt.graph.replay()
+        rt.step_graphs.replay(None)
 
     busy, top, _, wall = device_profile(replay, calls=5)
     if busy is None:
@@ -3532,8 +3532,9 @@ def il_replays(params, cfg, data):
                         "eager steps")
     finally:
         graphs.deterministic(False)
-    check(a.runtime.replays == 7 and a.runtime.eager_steps == 1,
-          f"il: {a.runtime.replays} replays, {a.runtime.eager_steps} eager")
+    rt = a.runtime.step_graphs
+    check(rt.replays == 7 and rt.eager == 1,
+          f"il: {rt.replays} replays, {rt.eager} eager")
     print("il train graph: 4 replayed steps (after a capturing chunk) equal "
           "bit for bit to 4 eager steps, parameters, BatchNorm buffers and "
           "Adam state included")
@@ -4092,10 +4093,10 @@ TD3_EXAMPLE = ["--envs", "64", "--chunks", "2", "--steps", "100",
 
 def counted(rk, fn):
     """fn()'s result and the render kernels' launches in it
-    (`gym_env.RENDER_KERNELS`): each count set to 0 just before and read
-    just after; fn() renders, so the front kernel's count must be the
+    (`rasterize_kernels.RENDER_KERNELS`): each count set to 0 just before
+    and read just after; fn() renders, so the front kernel's count must be the
     masks and rank kernels' together (`check_front`)."""
-    from tinycarlo_torch.gym_env import RENDER_KERNELS
+    from tinycarlo_torch.ops.rasterize_kernels import RENDER_KERNELS
 
     for k in RENDER_KERNELS:
         k.launches = 0
@@ -4109,7 +4110,7 @@ def render_launches(fenv, params, n):
     """{kernel name: launches} of n renders of `params` on the card: n of
     each kernel a render launches (`env.render_kernels`), 0 of the
     others."""
-    from tinycarlo_torch.gym_env import RENDER_KERNELS
+    from tinycarlo_torch.ops.rasterize_kernels import RENDER_KERNELS
 
     want = {k.NAME: 0 for k in RENDER_KERNELS}
     want.update((k.NAME, n) for k in fenv.render_kernels(params))
@@ -4133,19 +4134,20 @@ def twin_runs(card, rk, tb, gb, name, launches):
         kernel = fenv.render_kernel(env.params)
         r, got = counted(rk, lambda: tb.run(env, TWIN_STEPS))
         add_launches(launches, got)
-        captures = len(env._graphs)
-        want = r["renders"] - env.replays + captures
+        captures = env.step_graphs.captures
+        replays = env.step_graphs.replays
+        want = r["renders"] - replays + captures
         check(got == render_launches(fenv, env.params, want),
               f"twin {name} {mode}: launches {got}, not {want} of "
               f"{kernel.NAME} and front ({r['renders']} renders, "
-              f"{env.replays} replays, {captures} captures)")
-        check(mode != "graph" or env.replays == TWIN_STEPS,
-              f"twin {name}: {env.replays} replays of {TWIN_STEPS} steps")
+              f"{replays} replays, {captures} captures)")
+        check(mode != "graph" or replays == TWIN_STEPS,
+              f"twin {name}: {replays} replays of {TWIN_STEPS} steps")
         print(f"twin {name} ({env.observation_space_format}) {mode}: "
               f"{TWIN_STEPS} Stanley steps, {r['steps_per_s']:.1f} steps/s, "
               f"{r['ms_step']:.4f} ms a step (first step "
               f"{r['first_ms']:.1f} ms), {r['resets']} resets, "
-              f"{r['renders']} renders, {env.replays} replays, "
+              f"{r['renders']} renders, {replays} replays, "
               f"{kernel.NAME} launches {got[kernel.NAME]}, on {card}")
         if mode == "graph":
             # a replay's launch passes no wrapper: the trace counts them

@@ -843,9 +843,9 @@ def test_td3_chunk_graphs_match_eager():
         b, out_b = chunk(b, *args, 9, stack=stack, graph=False)
     finally:
         graphs.deterministic(False)
-    rt = a.runtime
-    assert rt.replays == 6 and len(rt.graphs) == 3 and rt.eager_steps == 3
-    assert launches == rt.eager_steps + len(rt.graphs)
+    rt = a.runtime.step_graphs
+    assert rt.replays == 6 and rt.captures == 3 and rt.eager == 3
+    assert launches == rt.eager + rt.captures
     assert _equal_states(a, b)
     assert all(torch.equal(out_a[k], out_b[k]) for k in out_a)
     assert bool((out_a["critic1_loss"][3:] != 0).all())
@@ -868,17 +868,18 @@ def test_td3_shorter_chunk_replays_the_captured_graphs():
         for s in (a, b):
             chunk(s, *args, 20, stack=stack)
         rt = a.runtime
-        graphs_before = dict(rt.graphs)
-        eager, replays = rt.eager_steps, rt.replays
+        graphs_before = dict(rt.step_graphs.entries)
+        eager, replays = rt.step_graphs.eager, rt.step_graphs.replays
         a, one = chunk(a, *args, 1, stack=stack)
         b, whole = chunk(b, *args, 20, stack=stack)
-        assert a.runtime is rt and rt.graphs == graphs_before
-        assert rt.eager_steps == eager and rt.replays == replays + 1
+        assert a.runtime is rt and rt.step_graphs.entries == graphs_before
+        assert (rt.step_graphs.eager == eager
+                and rt.step_graphs.replays == replays + 1)
         assert all(torch.equal(one[k][0], whole[k][0]) for k in one)
         assert one["update_losses"].shape == (1, 1, 3)
         a, _ = chunk(a, *args, 21, stack=stack)
         # one eager step and capture a kind: critic-only, critic + actor
-        assert a.runtime is not rt and a.runtime.eager_steps == 2
+        assert a.runtime is not rt and a.runtime.step_graphs.eager == 2
     finally:
         graphs.deterministic(False)
 
@@ -897,12 +898,12 @@ def test_td3_checkpoint_restores_into_a_captured_loop(tmp_path):
         path = str(tmp_path / "loop.pt")
         checkpoint.save(path, a)
         a, first = chunk(a, *args, 8, stack=stack)
-        graphs_before = dict(a.runtime.graphs)
+        graphs_before = dict(a.runtime.step_graphs.entries)
         checkpoint.restore(path, a)
         a, again = chunk(a, *args, 8, stack=stack)
     finally:
         graphs.deterministic(False)
-    assert a.runtime.graphs == graphs_before  # no new capture
+    assert a.runtime.step_graphs.entries == graphs_before  # no new capture
     assert all(torch.equal(first[k], again[k]) for k in first)
 
 
@@ -942,6 +943,137 @@ def test_rollout_graph_matches_eager():
     assert all(torch.equal(ta[k], tb[k]) for k in ta)
     assert torch.equal(fa.env.car.position, fb.env.car.position)
 
+
+
+# ---- the step-graph cache (utils/graphs.py StepGraphs) ---------------------
+
+def test_step_graphs_replay_a_key():
+    """A key's first call runs the step eagerly and captures it; each later
+    call replays the graph and returns the step's static result."""
+    _require_cuda()
+    from tinycarlo_torch.utils import graphs
+
+    x = torch.zeros(4, device="cuda")
+    steps = graphs.StepGraphs("cuda")
+
+    def step():
+        x.add_(1)
+        return x * 2
+
+    first = steps.run("k", step)
+    outs = [steps.run("k", step).clone() for _ in range(3)]
+    torch.cuda.synchronize()
+    assert float(first[0]) == 2.0 and float(x[0]) == 4.0
+    assert [float(o[0]) for o in outs] == [4.0, 6.0, 8.0]
+    assert (steps.eager, steps.captures, steps.replays) == (1, 1, 3)
+    assert steps.replays_by_key == {"k": 3}
+
+
+def test_step_graphs_tracing_keys_and_held_counts():
+    """Tracing off and on capture two graphs of one key; the traced one
+    writes its device span's marks at every replay, and the host count its
+    capture held is added once a replay."""
+    _require_cuda()
+    from tinycarlo_torch.utils import graphs, profiling
+
+    x = torch.zeros(1, device="cuda")
+    steps = graphs.StepGraphs("cuda")
+
+    def step():
+        with profiling.device_span("s"):
+            x.add_(1)
+        profiling.count("n", 3)
+
+    for _ in range(2):
+        steps.run("k", step)
+    with profiling.tracing() as tr:
+        for _ in range(4):
+            steps.run("k", step)
+    assert set(steps.entries) == {("k", False), ("k", True)}
+    assert (steps.eager, steps.captures, steps.replays) == (2, 2, 4)
+    assert float(x) == 6.0
+    # the traced warm-up counts as it runs; 3 replays add the held count
+    assert tr.counters["n"] == 3 * 4
+    spans = [sp for sp in tr.device_spans() if sp.name == "s"]
+    assert [sp.replayed for sp in spans] == [False, True, True, True]
+
+
+@pytest.mark.parametrize("launches,named", [(0, True), (2, True),
+                                            (1, False)])
+def test_step_graphs_check_render_launches(launches, named):
+    """A capture raises unless each render kernel the step names was
+    recorded once and every other render kernel never: a step that
+    recorded the masks kernel 0 or 2 times, or once unnamed."""
+    _require_cuda()
+    from tinycarlo_torch.utils import graphs
+
+    L, h, w, t = 5, 32, 48, 2
+    u0, v0, u1, v1, draw, lay = _segments(7, 8, 100, h, w, L, "cuda")
+    bundle = rk.compact_env_idx_soa(
+        u0, v0, u1, v1, draw, 100 * rk._n_xblocks(w), h, t,
+        edge_layer=lay, n_layers=L, w=w)
+    steps = graphs.StepGraphs("cuda")
+
+    def step():
+        for _ in range(launches):
+            rk.masks_kernel(bundle, L, (h, w), t)
+
+    with pytest.raises(RuntimeError, match="recorded the launches"):
+        steps.run("k", step, kernels=(rk.masks_kernel,) if named else ())
+    assert steps.captures == 0 and not steps.entries
+
+
+def test_step_graphs_warm_up_and_capture_on_one_stream():
+    """Every warm-up and capture -- of two caches, of a rollout call and of
+    the primitives -- runs on the one side stream of the card, which is
+    not the default stream."""
+    _require_cuda()
+    from tinycarlo_torch.utils import graphs
+
+    seen = []
+    x = torch.zeros(1, device="cuda")
+
+    def step():
+        seen.append(torch.cuda.current_stream())
+        x.add_(1)
+
+    graphs.StepGraphs("cuda").run("a", step)
+    graphs.StepGraphs("cuda").run("b", step)
+    graphs.warm_up(step)
+    graphs.capture(step)
+    assert len(seen) == 6
+    assert all(s == graphs.side_stream() for s in seen)
+    assert graphs.side_stream() != torch.cuda.default_stream()
+
+
+def test_gym_interleaved_modes_match_eager():
+    """Steps that switch between the gym's (render, wrapped) modes, with
+    tracing off and on, every step -- eight graphs in one memory pool --
+    return what eager steps return, bit for bit."""
+    _require_cuda()
+    from contextlib import nullcontext
+
+    from tinycarlo_torch.benchmarks import gym_bench as gb
+    from tinycarlo_torch.utils import profiling
+
+    envs = [gb.make_env(gb.CONFIG1, mode) for mode in ("graph", "eager")]
+    for env in envs:
+        env.reset(seed=3)
+    modes = [(False, False), (True, False), (False, True), (True, True)]
+    for i, action in enumerate(gb.actions(48, seed=7)):
+        no_obs, wrapped = modes[i % 4]
+        traced = (i // 4) % 3 == 2
+        outs = []
+        for env in envs:
+            env.no_observation, env.wrapped = no_obs, wrapped
+            with profiling.tracing() if traced else nullcontext():
+                outs.append(env.step(action))
+        assert gb._same(outs[0], outs[1]), i
+        if outs[0][2] or outs[0][3]:
+            for env in envs:
+                env.reset()
+    steps = envs[0].step_graphs
+    assert steps.captures == 8 and steps.replays == 48 - 8
 
 
 # ---- imitation learning (train/il.py) ----------------------------------------
@@ -992,7 +1124,8 @@ def test_il_train_graph_matches_eager():
     finally:
         graphs.deterministic(False)
     (a, la), (b, lb) = runs
-    assert a.runtime.replays == 9 and a.runtime.eager_steps == 1
+    assert (a.runtime.step_graphs.replays == 9
+            and a.runtime.step_graphs.eager == 1)
     assert torch.equal(la, lb) and bool(torch.isfinite(la).all())
     assert _equal_states((a.model, a.opt), (b.model, b.opt))
     assert not torch.equal(a.model.encoder.convs[0].bn1.running_var,
@@ -1421,7 +1554,7 @@ def test_tracer_leaves_rollout_and_gym_outputs():
     off = steps()
     with profiling.tracing() as tr:
         on = steps()
-    assert len(env._graphs) == 2
+    assert len(env.step_graphs.entries) == 2
     for a, b in zip(off, on):
         assert np.array_equal(a[0], b[0]) and a[1:] == b[1:]
     waits = [s for s in tr.spans if s.name == "gym.wait" and s.call_id]

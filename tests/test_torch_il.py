@@ -349,7 +349,7 @@ def test_train_chunk_matches_jax(balanced):
     np.testing.assert_allclose(plosses.numpy(), np.asarray(jlosses),
                                rtol=1e-4)
     assert int(pstate.opt.count) == n_steps
-    assert pstate.runtime.eager_steps == n_steps  # no graph on the CPU
+    assert pstate.runtime.step_graphs.eager == n_steps  # no graph on the CPU
 
 
 def test_balanced_draw_takes_each_pool():

@@ -41,7 +41,8 @@ from typing import Dict, List
 import numpy as np
 
 from tinycarlo_torch.env import render_kernels
-from tinycarlo_torch.gym_env import RENDER_KERNELS, TinyCarloEnv
+from tinycarlo_torch.gym_env import TinyCarloEnv
+from tinycarlo_torch.ops.rasterize_kernels import RENDER_KERNELS
 from tinycarlo_torch.utils.helper import card_line, resolve_device
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -125,13 +126,13 @@ def counted_run(env, run_fn, **labels) -> Dict:
     for kernel in RENDER_KERNELS:
         kernel.launches = 0
     result = run_fn()
-    captures = len(env._graphs)
+    captures, replays = env.step_graphs.captures, env.step_graphs.replays
     want = {k.NAME: 0 for k in RENDER_KERNELS}
     if env.device.type == "cuda":
-        want.update((k.NAME, result["renders"] - env.replays + captures)
+        want.update((k.NAME, result["renders"] - replays + captures)
                     for k in render_kernels(env.params))
     result.update(**labels, format=env.observation_space_format,
-                  replays=env.replays,
+                  replays=replays,
                   captures=captures,
                   launches={k.NAME: k.launches for k in RENDER_KERNELS},
                   want_launches=want)

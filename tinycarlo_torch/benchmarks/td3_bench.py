@@ -96,8 +96,9 @@ def make_encoder(params, dtype: torch.dtype, seed: int = 1):
 
 def _counts(rt) -> Dict[str, int]:
     """A chunk runtime's replayed and eager steps and captures."""
-    return {"replays": rt.replays, "captures": len(rt.graphs),
-            "eager_steps": rt.eager_steps}
+    s = rt.step_graphs
+    return {"replays": s.replays, "captures": s.captures,
+            "eager_steps": s.eager}
 
 
 def _sync(dev):

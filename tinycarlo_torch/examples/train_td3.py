@@ -287,11 +287,12 @@ def main(argv=None) -> Dict:
             pending = None
     if pending is not None:
         consume(pending)
-    rt = state.runtime
-    for kind in rt.graphs:
+    step_graphs = state.runtime.step_graphs
+    for kind, _ in step_graphs.entries:
         print(f"graph of {kind_name(kind)}: captured once, replayed "
-              f"{rt.replays_by_kind.get(kind, 0)} times")
-    print(f"{rt.eager_steps} steps ran eagerly, {rt.replays} replayed")
+              f"{step_graphs.replays_by_key.get(kind, 0)} times")
+    print(f"{step_graphs.eager} steps ran eagerly, {step_graphs.replays} "
+          "replayed")
     first, to_policy = time_to_policy(rew_hist, secs)
     train_wall = time.perf_counter() - wall0
     print(f"{sum(secs):.2f} s of chunks on the {params.device.type}, "
@@ -344,8 +345,8 @@ def main(argv=None) -> Dict:
             "encoder": source, "first_policy_chunk": first,
             "seconds_to_policy": to_policy, "train_wall_s": train_wall,
             "wall_s": wall, "peak_memory": memory,
-            "graphs": {kind: rt.replays_by_kind.get(kind, 0)
-                       for kind in rt.graphs},
+            "graphs": {kind: step_graphs.replays_by_key.get(kind, 0)
+                       for kind, _ in step_graphs.entries},
             "state": state, "out_dir": out_dir, "plot": plot,
             "eval": results}
 

@@ -12,15 +12,17 @@ runs the plain PyTorch path. On the card a step is ONE replayed CUDA
 graph: the car step, the render (the masks kernel for classes, the rank
 kernel for rgb, rgb_planar and rank, the exact kernel under `camera.stroke:
 exact`), the info and the default or wrapped shaping, captured once per
-(render, wrapped) mode at its first use (and once more with tracing on:
-utils/profiling.py), over static state and action buffers. Per step the host writes the action into a pinned buffer, copies
+(render, wrapped) mode at its first use, and once more with tracing on
+(`utils.graphs.StepGraphs`, `step_graphs`), over static state and action
+buffers. Per step the host writes the action into a pinned buffer, copies
 it in, replays, and copies obs, reward, flags and info out as ONE byte
 buffer into pinned memory (tinycarlo_tpu/gym_env.py:309-326 is the JAX
 shim's one dispatch and one transfer). The capture raises unless it
 recorded exactly one launch of each render kernel (`env.render_kernels`;
-none without a render); its wrapper counts that recording, and a replay, which runs the recorded
-launch without the wrapper, counts nothing (`replays` counts the
-replays). Anything that changes the state outside a step (`reset`,
+none without a render) and none of the others; its wrapper counts that
+recording, and a replay, which runs the recorded launch without the
+wrapper, counts nothing (`step_graphs.replays` counts the replays).
+Anything that changes the state outside a step (`reset`,
 `camera.update_params()`) writes into the captured tensors in place.
 Traced, `step()` is the call span "gym.step": "gym.stage_in" (the action
 staged and copied in), "gym.replay", "gym.wait" (the copy out and its
@@ -41,6 +43,7 @@ from __future__ import annotations
 import os
 import time
 from dataclasses import fields
+from functools import partial
 from typing import Any, Dict, Optional, Tuple, Union
 
 import numpy as np
@@ -51,13 +54,9 @@ from tinycarlo_torch import car as car_mod
 from tinycarlo_torch import env as fenv
 from tinycarlo_torch.config import load_config
 from tinycarlo_torch.ops import rasterize_kernels as rk
-from tinycarlo_torch.utils import profiling
+from tinycarlo_torch.utils import graphs, profiling
 from tinycarlo_torch.utils.gym_compat import Env, spaces
 from tinycarlo_torch.utils.helper import getenv, numpy_dtype, resolve_device
-
-# the render kernels a step can launch (`env.render_kernels`)
-RENDER_KERNELS = (rk.front_kernel, rk.masks_kernel, rk.rank_kernel,
-                  rk.exact_kernel)
 
 
 class _CarView:
@@ -235,13 +234,10 @@ class TinyCarloEnv(Env):
         cuda = self.device.type == "cuda"
         self._action_host = torch.zeros(3, dtype=torch.float64,
                                         pin_memory=cuda)
-        # replay each (render, wrapped, tracing) mode's captured step on
-        # the card; False steps eagerly, as off the card
+        # replay each (render, wrapped) mode's captured step on the card;
+        # False steps eagerly, as off the card
         self.graphs = cuda
-        self.replays = 0  # graph replays, one a replayed step
-        # (render, wrapped, tracing) -> (graph, packed output, layout,
-        # the capture's held host counts)
-        self._graphs: Dict[Tuple[bool, bool, bool], tuple] = {}
+        self.step_graphs = graphs.StepGraphs(self.device, name="gym")
         self._host_out: Dict[int, torch.Tensor] = {}  # pinned, by size
 
         self.action_space = spaces.Dict(
@@ -334,51 +330,15 @@ class TinyCarloEnv(Env):
         with profiling.span("gym.unpack"):
             return _unpack(host.numpy(), layout)
 
-    def _capture(self, key: Tuple[bool, bool, bool]):
-        """The first step of a (render, wrapped, tracing) mode: an eager
-        step on a side stream (launchers' one-time setup, lazy
-        initialisation), then the capture of the step body, which runs
-        nothing and must record one launch of each render kernel
-        (`env.render_kernels`; none without a render). Returns the eager
-        step's packed outputs and layout."""
-        want_obs, wrapped, _ = key
-        stream = torch.cuda.Stream(self.device)
-        stream.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(stream):
-            packed, layout = self._step_body(want_obs, wrapped)
-        torch.cuda.current_stream(self.device).wait_stream(stream)
-        before = {k.NAME: k.launches for k in RENDER_KERNELS}
-        graph = torch.cuda.CUDAGraph()
-        with profiling.held_counts() as held, torch.cuda.graph(graph):
-            static, _ = self._step_body(want_obs, wrapped)
-        recorded = {k.NAME: k.launches - before[k.NAME]
-                    for k in RENDER_KERNELS}
-        want = dict.fromkeys(recorded, 0)
-        if want_obs:
-            want.update((k.NAME, 1) for k in fenv.render_kernels(self.params))
-        if recorded != want:
-            raise RuntimeError(f"the captured step recorded the launches "
-                               f"{recorded}, not {want}")
-        self._graphs[key] = (graph, static, layout, held)
-        return packed, layout
-
     def _fused_step(self, want_obs: bool, wrapped: bool
                     ) -> Dict[str, np.ndarray]:
-        """One step: a replay of the mode's graph (captured at its first
-        step; a graph captured with tracing on marks its device spans, so
-        tracing picks its own), or eagerly when `graphs` is off."""
-        if not self.graphs:
-            return self._to_host(*self._step_body(want_obs, wrapped))
-        key = (want_obs, wrapped, profiling.enabled())
-        entry = self._graphs.get(key)
-        if entry is None:
-            return self._to_host(*self._capture(key))
-        graph, static, layout, held = entry
-        with profiling.span("gym.replay"):
-            graph.replay()
-        profiling.add_counts(held)
-        self.replays += 1
-        return self._to_host(static, layout)
+        """One step: on the card a replay of the (render, wrapped) mode's
+        step, captured at its first step (`graphs.StepGraphs`), or eagerly
+        when `graphs` is off."""
+        return self._to_host(*self.step_graphs.run(
+            (want_obs, wrapped), partial(self._step_body, want_obs, wrapped),
+            self.graphs, fenv.render_kernels(self.params) if want_obs
+            else ()))
 
     def _render_obs(self, fmt: Optional[str] = None) -> np.ndarray:
         obs = fenv.render_observation(self.params, self.state, fmt)
@@ -600,4 +560,4 @@ class TinyCarloEnv(Env):
                 if window is not None:
                     cv2.destroyWindow(window)
             self._window = self._window_camera = None
-        self._graphs.clear()
+        self.step_graphs.entries.clear()

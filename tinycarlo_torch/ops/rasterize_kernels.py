@@ -1691,6 +1691,9 @@ front_kernel = FrontKernel()
 frame_soa_kernel = FrameSoaKernel()
 env_soa_kernel = EnvSoaKernel()
 env_seg_kernel = EnvSegKernel()
+# the wrappers an env's render can launch (`env.render_kernels` names the
+# ones a config's render does)
+RENDER_KERNELS = (front_kernel, masks_kernel, rank_kernel, exact_kernel)
 
 
 def _budget(e: int, w: int, max_visible: Optional[int]) -> int:

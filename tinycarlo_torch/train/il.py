@@ -13,9 +13,9 @@ place (parameters, BatchNorm running statistics, Adam moments and count),
 so that a CUDA graph can replay a step over the state's own tensors.
 Adam is `train.td3.adam_update`, optax's order of operations.
 
-On the card:
-- `train_chunk` runs its first step eagerly on a side stream, captures one
-  step (index draw, gather, `pre_obs`, one-hot, forward, backward, Adam)
+On the card (`utils.graphs.StepGraphs`):
+- `train_chunk` runs its first step eagerly, captures one step (index
+  draw, gather, `pre_obs`, one-hot, forward, backward, Adam)
   as a CUDA graph over static batch buffers with the index generator
   registered, and replays it for the rest of the chunk; the losses go
   into an (n_steps,) device buffer at a device-side index. The graph lives
@@ -220,7 +220,8 @@ def _batch(cfg: ILConfig, data: Dict[str, torch.Tensor], idx: torch.Tensor,
 
 
 class _TrainRuntime:
-    """A train chunk's loss buffer, step index, injected draws and graph."""
+    """A train chunk's loss buffer, step index, injected draws and captured
+    step (`graphs.StepGraphs`)."""
 
     def __init__(self, key, n_steps: int, dev: torch.device,
                  dtype: torch.dtype):
@@ -228,10 +229,7 @@ class _TrainRuntime:
         self.losses = torch.zeros(n_steps, dtype=dtype, device=dev)
         self.t = torch.zeros(1, dtype=torch.long, device=dev)
         self.draws: Optional[torch.Tensor] = None
-        self.graph: Optional[torch.cuda.CUDAGraph] = None
-        self.stream = None
-        self.replays = 0
-        self.eager_steps = 0
+        self.step_graphs = graphs.StepGraphs(dev)
 
 
 def train_chunk(
@@ -277,24 +275,8 @@ def train_chunk(
             rt.losses.index_copy_(0, rt.t, loss[None])
             rt.t.add_(1)
 
-    todo = n_steps
-    if not (graph and dev.type == "cuda"):
-        for _ in range(todo):
-            run()
-        rt.eager_steps += todo
-        return state, rt.losses.clone()
-    if rt.graph is None:
-        # the first step and the capture on one stream: autograd records
-        # the stream its gradients' leaves were first used on
-        rt.stream = torch.cuda.Stream(dev)
-        graphs.warm_up(run, stream=rt.stream)
-        rt.graph = graphs.capture(run, generators=(generator,),
-                                  stream=rt.stream)
-        rt.eager_steps += 1
-        todo -= 1
-    for _ in range(todo):
-        rt.graph.replay()
-    rt.replays += todo
+    for _ in range(n_steps):
+        rt.step_graphs.run(None, run, graph, generators=(generator,))
     return state, rt.losses.clone()
 
 
@@ -363,7 +345,7 @@ class Collector:
         self.cfg, self.n, self.steps = cfg, n_envs, chunk_steps
         self.model = model
         self.unit = 1 if model is not None else cfg.skip_steps
-        self.use_graph = graph and dev.type == "cuda"
+        self.graph = graph
         # CTETerminationWrapper(max_cte=collect_max_cte, number_of_steps=1)
         # (tinycarlo_tpu/train/il.py:255-267): a diverged car auto-resets
         self.stack = WrapperStack(termination_fns=(partial(
@@ -387,11 +369,15 @@ class Collector:
         self.t = torch.zeros(1, dtype=torch.long, device=dev)
         self.vstate: Optional[vector.VecState] = None
         self.draws: Optional[Dict[str, torch.Tensor]] = None
-        self.graphs: Dict[Any, torch.cuda.CUDAGraph] = {}
-        self.pool = None
-        self.stream = None
         self.kernels = fenv.render_kernels(params)
-        self.stats = {"renders": 0, "captures": 0, "replays": 0}
+        self.step_graphs = graphs.StepGraphs(dev)
+
+    @property
+    def stats(self) -> Dict[str, int]:
+        """Units run eagerly (a render each), captures and unit replays."""
+        s = self.step_graphs
+        return {"renders": s.eager, "captures": s.captures,
+                "replays": s.replays}
 
     def _begin(self, maneuver, generator, draws) -> None:
         """A chunk's start, in place: the camera, reset states and infos,
@@ -501,28 +487,10 @@ class Collector:
         n_units, rest = divmod(self.steps, self.unit)
         if self.model is not None:
             self.model.eval()
-        if not self.use_graph:
-            for _ in range(n_units):
-                self._unit()
-            self.stats["renders"] += n_units
-        else:
-            key = (draws is not None, id(generator))
-            g = self.graphs.get(key)
-            if g is None:
-                if self.stream is None:
-                    self.stream = torch.cuda.Stream(self.params.device)
-                graphs.warm_up(self._unit, stream=self.stream)
-                self.stats["renders"] += 1
-                g = graphs.capture(self._unit, self.kernels,
-                                   generators=(generator,), pool=self.pool,
-                                   stream=self.stream)
-                self.pool = g.pool()
-                self.graphs[key] = g
-                self.stats["captures"] += 1
-                n_units -= 1
-            for _ in range(n_units):
-                g.replay()
-            self.stats["replays"] += n_units
+        for _ in range(n_units):
+            self.step_graphs.run((draws is not None, id(generator)),
+                                 self._unit, self.graph, self.kernels,
+                                 (generator,))
         for _ in range(rest):  # steps past the last unit render nothing
             self._step(render=False)
         out = {k: self.out[k].clone() for k in ("obs", "steering")}

@@ -38,8 +38,8 @@ two branches -- whether the buffer holds a batch (:229-232) and whether an
 update is an actor step (td3.py:211-213) -- are functions of the step
 count, which the host counts: so the loop captures one graph per kind of
 step (collect only; critic-only updates; critic + actor; and once more
-under tracing, whose graphs mark their stages), the first step
-of each kind run eagerly on a side stream before its capture, and replays
+under tracing, whose graphs mark their stages; `utils.graphs.StepGraphs`),
+the first step of each kind run eagerly before its capture, and replays
 them in the order the counts give. The graphs share one memory pool and
 write everything into the state's own tensors and into (T, ...) output
 buffers at a device-side step index; they live on the state
@@ -55,6 +55,7 @@ env's respawn stream); `draws` injects them instead, for the parity tests.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from functools import partial
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
@@ -206,9 +207,9 @@ def step_kinds(state: LoopState, cfg: td3.TD3Config, loop_cfg: LoopConfig,
 
 class _Runtime:
     """A chunk's output buffers, its step index, the injected draws'
-    buffers, and the captured graph of each kind of step with its
-    replays. The buffers hold `steps` rows, the longest chunk since the
-    capture; a shorter chunk fills their first rows."""
+    buffers, and its captured steps, one graph a kind of step
+    (`graphs.StepGraphs`). The buffers hold `steps` rows, the longest
+    chunk since the capture; a shorter chunk fills their first rows."""
 
     def __init__(self, key, n_steps: int, outs: Dict[str, torch.Tensor],
                  dev: torch.device):
@@ -218,16 +219,7 @@ class _Runtime:
                                    device=dev) for k, v in outs.items()}
         self.t = torch.zeros(1, dtype=torch.long, device=dev)
         self.draws: Optional[Dict[str, torch.Tensor]] = None
-        self.graphs: Dict[Any, torch.cuda.CUDAGraph] = {}
-        # the graphs captured with tracing on (they mark their stages), and
-        # the host counts each capture held (utils/profiling.py)
-        self.traced_graphs: Dict[Any, torch.cuda.CUDAGraph] = {}
-        self.held: Dict[Any, Dict[str, int]] = {}
-        self.pool = None
-        self.stream = None
-        self.replays = 0
-        self.replays_by_kind: Dict[Any, int] = {}
-        self.eager_steps = 0
+        self.step_graphs = graphs.StepGraphs(dev)
 
 
 def _step(state: LoopState, params, cfg: td3.TD3Config,
@@ -449,40 +441,12 @@ def chunk(
     rt.t.zero_()
     kinds, filled, steps = step_kinds(state, cfg, loop_cfg, n_steps,
                                       n_global)
-    use_graph = graph and dev.type == "cuda"
     kernels = fenv.render_kernels(params)
     for kind in kinds:
-        def run(kind=kind):
-            _step(state, params, cfg, loop_cfg, encoder_apply, stack, kind,
-                  rt, obs_render_fn, dp)
-
-        kind_graphs = rt.traced_graphs if profiling.enabled() else rt.graphs
-        g = kind_graphs.get(kind) if use_graph else None
-        if g is not None:
-            g.replay()
-            profiling.add_counts(rt.held.get(kind, {}))
-            rt.replays += 1
-            rt.replays_by_kind[kind] = rt.replays_by_kind.get(kind, 0) + 1
-            continue
-        rt.eager_steps += 1
-        if not use_graph:
-            run()
-            continue
-        # the step's first run and its capture on one stream: autograd
-        # records the stream its gradients' leaves were first used on
-        if rt.stream is None:
-            rt.stream = torch.cuda.Stream(dev)
-        graphs.warm_up(run, stream=rt.stream)
-        with profiling.held_counts() as held:
-            g = graphs.capture(
-                run, kernels,
-                generators=(state.generator, state.vstate.generator),
-                pool=rt.pool, stream=rt.stream)
-        rt.pool = g.pool()
-        kind_graphs[kind] = g
-        if profiling.enabled():
-            rt.held[kind] = held
-        # the capture recorded the step index's increment, not run it
+        rt.step_graphs.run(
+            kind, partial(_step, state, params, cfg, loop_cfg, encoder_apply,
+                          stack, kind, rt, obs_render_fn, dp),
+            graph, kernels, (state.generator, state.vstate.generator))
     state.filled_host, state.steps_host = filled, steps
     return state, {k: v[:n_steps].clone() for k, v in rt.out.items()}
 

@@ -38,15 +38,15 @@ session at a time; off is the default. Inside the block:
   * `count(name, n)` adds to a host counter; `device_count(name, t)` adds
     the sum of a device tensor into a device accumulator (captured into a
     graph like any other work), read back with the ring. A capture that
-    counts on the host holds its counts (`held_counts`), and the code that
-    replays the graph adds them at each replay (`add_counts`).
+    counts on the host holds its counts (`held_counts`), and
+    `graphs.StepGraphs` adds them at each replay (`add_counts`).
   * `tr.counters`, `tr.spans` and `tr.device_spans()` hold the results.
 
 Off, `span` and `device_span` return one shared no-op context after one
 check of a module-level variable, and the counters return at once: no
 `record_function`, no dispatcher call, no allocation, nothing enqueued.
 So a graph captured with tracing off is the graph of untraced code, kernel
-for kernel; code that caches graphs keys them by `enabled()`.
+for kernel; `graphs.StepGraphs` keys its graphs by `enabled()`.
 
 Names in the port (spans are host spans unless marked device):
 

@@ -187,14 +187,15 @@ def rollout(
     that keeps state between steps keeps it in tensors it updates in place.
 
     On a CUDA state with `graph` (the default) and more than
-    ROLLOUT_WARMUP steps, those first steps run eagerly on a side stream,
-    then one step is captured as a CUDA graph over the state's tensors
-    (each render kernel recorded once when rendering; the generators
-    registered) and replayed for the rest, its outputs written into (T,
-    ...) buffers at a device-side step index. The returned state's
-    tensors are the graph's static ones. `stats`, if given, gains the
-    counts "replays" and "captures" (a replayed render passes no kernel
-    wrapper, so launch counts read eager renders plus captures).
+    ROLLOUT_WARMUP steps, those first steps run eagerly on the side
+    stream, then one step is captured over the state's tensors by a
+    `graphs.StepGraphs` of the call (each render kernel recorded once when
+    rendering; the generators registered) and replayed for the rest, its
+    outputs written into (T, ...) buffers at a device-side step index.
+    The returned state's tensors are the graph's static ones. `stats`, if
+    given, gains the counts "replays" and "captures" (a replayed render
+    passes no kernel wrapper, so launch counts read eager renders plus
+    captures).
 
     Traced (utils/profiling.py): the call span "rollout" holds
     "rollout.warmup" (the eager steps), "rollout.capture" and one
@@ -259,17 +260,15 @@ def _rollout(params, state, policy_fn, n_steps, stack, max_episode_steps,
                 bufs[k].index_copy_(0, t, v[None])
             t.add_(1)
 
-    # the host counts of the captured step count at each replay
-    with profiling.span("rollout.capture"), profiling.held_counts() as held:
-        g = graphs.capture(captured, fenv.render_kernels(params) if render
-                           else (), generators=(state.generator, generator))
+    steps = graphs.StepGraphs(device, name="rollout")
+    with profiling.span("rollout.capture"):
+        steps.capture(None, captured, fenv.render_kernels(params) if render
+                      else (), generators=(state.generator, generator))
     for _ in range(n_rest):
-        with profiling.span("rollout.replay"):
-            g.replay()
-        profiling.add_counts(held)
+        steps.replay(None)
     if stats is not None:
-        stats["replays"] = stats.get("replays", 0) + n_rest
-        stats["captures"] = stats.get("captures", 0) + 1
+        stats["replays"] = stats.get("replays", 0) + steps.replays
+        stats["captures"] = stats.get("captures", 0) + steps.captures
     traj = _stack(outs)
     return state, {k: torch.cat([traj[k], bufs[k]]) for k in bufs}
 
